@@ -1,8 +1,9 @@
-"""Model configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-A copy of the model part of `ganet_tpu/config.py` (the port imports nothing
-of the JAX package).  Field names and presets match the JAX package, so a
-configuration means the same network in both.  `sga_impl` becomes `impl`:
+A copy of `ganet_tpu/config.py` (the port imports nothing of the JAX
+package).  Field names, defaults and presets match the JAX package, so a
+configuration means the same network and training run in both.  The
+model's `sga_impl` becomes `impl`:
 
   * "auto":   the CUDA kernels for tensors on a CUDA device, the plain
               PyTorch versions for tensors on the CPU;
@@ -10,13 +11,15 @@ configuration means the same network in both.  `sga_impl` becomes `impl`:
   * "kernel": the CUDA kernels (on a CPU tensor a kernel wrapper runs its
               plain version, since a CUDA kernel cannot run there).
 
-Data, optimiser, mesh and training configuration come with the training
-slice of the port.
+`ModelConfig.remat` (rematerialisation) and `channel_tp` (channel tensor
+parallelism) are not ported yet.  `TrainConfig.mesh` is kept; the port's
+trainer runs on one device and refuses a larger mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 IMPLS = ("auto", "torch", "kernel")
 
@@ -114,3 +117,64 @@ def model_config(name: str, max_disp: int = 192, **kw) -> ModelConfig:
     if name not in MODEL_PRESETS:
         raise KeyError(f"unknown model {name!r}; choose from {sorted(MODEL_PRESETS)}")
     return MODEL_PRESETS[name](max_disp=max_disp, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Data source and crop (see `ganet_tpu.config.DataConfig`)."""
+
+    data_path: str = ""
+    training_list: str = "lists/sceneflow_train.list"
+    val_list: str = "lists/sceneflow_test_select.list"
+    crop_height: int = 240
+    crop_width: int = 528
+    # "sceneflow" | "kitti2012" | "kitti2015" | "synthetic".
+    kind: str = "sceneflow"
+    left_right: bool = False  # also supervise the right view (mirror trick)
+    shuffle: bool = True
+    num_prefetch: int = 2
+    # Synthetic only: thin the valid mask to about this fraction (0 = dense).
+    sparse_frac: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Adam with an optional step decay (see `ganet_tpu.config.OptimConfig`)."""
+
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    # Multiply lr by `decay_factor` from epoch `decay_epoch` on.
+    decay_epoch: Optional[int] = None
+    decay_factor: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh: data (batch), space (H of the cost volume), disp."""
+
+    data: int = 1
+    space: int = 1
+    disp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.space * self.disp
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = dataclasses.field(default_factory=ganet_deep)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    batch_size: int = 8
+    num_epochs: int = 10
+    steps_per_epoch: Optional[int] = None  # None = full dataset
+    save_path: str = "./checkpoint/"
+    resume: str = ""
+    seed: int = 0
+    # Deep-supervision weights over (disp0, disp1, disp2).
+    loss_weights: Tuple[float, ...] = (0.2, 0.6, 1.0)
+    log_every: int = 10
+    keep_checkpoints: int = 5

@@ -1,14 +1,15 @@
-"""Cost aggregation and disparity heads, eval forward (counterpart of
+"""Cost aggregation and disparity heads (counterpart of
 `ganet_tpu/models/aggregation.py`).
 
 Volumes are (B, C, D, H, W).  The 3D-conv hourglass is interleaved with
 SGA blocks at 1/3 resolution (C channels) and 1/6 resolution (1.5C); the
 final head refines with LGA.  SGA and LGA go through `ops.dispatch`, so
-with `impl="auto"` a CUDA volume runs the hand-written kernels.
+with `impl="auto"` a CUDA volume runs the hand-written kernels, and their
+gradients the hand-written backward kernels.
 
-The train-mode heads `disp0`.. hold their parameters so that every leaf
-of the JAX package's variable tree has a home; train-mode outputs and
-rematerialisation come with the training slice.
+In train mode the intermediate heads `disp0`.. run too, and
+`CostAggregation` returns every head's map for deep supervision; in eval
+mode only the final map.  Rematerialisation is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,13 +22,13 @@ from ganet_tpu_torch.config import ModelConfig
 from ganet_tpu_torch.models.layers import (
     BasicConv,
     Conv2x,
-    bn_eval,
+    batch_norm,
     channel_schedule,
     torch_dtype,
 )
 from ganet_tpu_torch.ops import dispatch
-from ganet_tpu_torch.ops.disparity import trilinear_upsample
-from ganet_tpu_torch.ops.normalize import l1_normalize, normalize_weights
+from ganet_tpu_torch.ops.disparity import disparity_regression, trilinear_upsample
+from ganet_tpu_torch.ops.normalize import at_least_f32, l1_normalize, normalize_weights
 
 
 class SGABlock(nn.Module):
@@ -53,19 +54,29 @@ class SGABlock(nn.Module):
         k = k.permute(0, 3, 1, 2, 4, 5).contiguous()  # (B, C, 4, 5, H, W)
         rem = x
         x = dispatch.sga_ncdhw(x.contiguous(), k.to(x.dtype), self.cfg.impl)
-        x = F.relu(bn_eval(x, self.bn))
+        x = F.relu(batch_norm(x, self.bn))
         x = self.BasicConv_0(x)
         return F.relu(x + rem.to(x.dtype))
 
 
 class DispHead(nn.Module):
-    """Parameters of the train-mode head (`disp0`, `disp1`): a C -> 1 conv.
-    Its forward (upsample, softmax, expectation) comes with the training
-    slice; the eval forward does not run it."""
+    """Intermediate head of the train mode (`disp0`, `disp1`): C -> 1 conv,
+    trilinear x3 upsample in the head dtype, softmax over the negated cost
+    in float32, expectation."""
 
-    def __init__(self, channels: int):
+    def __init__(self, cfg: ModelConfig, channels: int):
         super().__init__()
+        self.cfg = cfg
         self.conv = nn.Conv3d(channels, 1, 3, padding=1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, C, D/3, H/3, W/3) -> (B, H, W)."""
+        cfg = self.cfg
+        x = F.conv3d(x, self.conv.weight.to(x.dtype), padding=1)[:, 0]
+        D = cfg.max_disp
+        H, W = x.shape[2] * 3, x.shape[3] * 3
+        x = trilinear_upsample(x.to(torch_dtype(cfg.resolved_head_dtype)), (D, H, W))
+        return disparity_regression(torch.softmax(-at_least_f32(x), dim=1), D)
 
 
 class DispAggHead(nn.Module):
@@ -88,26 +99,28 @@ class DispAggHead(nn.Module):
         H, W = x.shape[2] * 3, x.shape[3] * 3
         x = trilinear_upsample(x.to(hd), (D, H, W)).contiguous()
         # Guidance is normalised in float32, then stored in the head dtype.
-        lg1 = l1_normalize(lg1.float(), dim=1).to(hd).contiguous()
-        lg2 = l1_normalize(lg2.float(), dim=1).to(hd).contiguous()
+        lg1 = l1_normalize(at_least_f32(lg1), dim=1).to(hd).contiguous()
+        lg2 = l1_normalize(at_least_f32(lg2), dim=1).to(hd).contiguous()
         x = dispatch.lga_nchw(x, lg1, r, cfg.lga_repeats, cfg.impl)
         # Softmax in float32; the probabilities are stored in the head dtype.
-        p = torch.softmax(-x.float(), dim=1).to(hd).contiguous()
+        p = torch.softmax(-at_least_f32(x), dim=1).to(hd).contiguous()
         p = dispatch.lga_nchw(p, lg2, r, cfg.lga_repeats, cfg.impl)
         # Renormalisation fused with the expectation, in float32.
-        pf = p.float()
-        d = torch.arange(cfg.max_disp, dtype=torch.float32, device=pf.device)
+        pf = at_least_f32(p)
+        d = torch.arange(cfg.max_disp, dtype=pf.dtype, device=pf.device)
         num = (pf * d.view(1, -1, 1, 1)).sum(dim=1)
         den = torch.clamp_min(pf.abs().sum(dim=1), 1e-6)
         return num / den
 
 
 class CostAggregation(nn.Module):
-    """3D hourglass with SGA blocks; eval forward returns the final map.
+    """3D hourglass with SGA blocks.  Returns the final map in eval mode and
+    the list [disp0, disp1, ..., final] in train mode.
 
     The layer order is fixed in `__init__` as a plan of steps, which
     `forward` runs: ("conv", name), ("c2", name, skip index),
-    ("sga", name, guidance key, index) and ("save", skip index).  Modules
+    ("sga", name, guidance key, index), ("save", skip index) and
+    ("head", name), the last run in train mode only.  Modules
     are created in the JAX package's order, so that their names match its
     parameter paths.
     """
@@ -145,7 +158,8 @@ class CostAggregation(nn.Module):
                 plan.append(("sga", name, key, j))
 
         def head(name):
-            self.add_module(name, DispHead(chans[0]))
+            self.add_module(name, DispHead(cfg, chans[0]))
+            plan.append(("head", name))
 
         conv(2 * cfg.feature_channels, C, relu=False)
         sga("sg_full")
@@ -175,8 +189,9 @@ class CostAggregation(nn.Module):
         self.plan = plan
         self.levels = levels
 
-    def forward(self, cv: torch.Tensor, guidance: dict) -> torch.Tensor:
+    def forward(self, cv: torch.Tensor, guidance: dict):
         rem = [None] * (self.levels + 1)
+        outputs = []
         x = cv
         for step in self.plan:
             kind = step[0]
@@ -188,4 +203,7 @@ class CostAggregation(nn.Module):
                 x = getattr(self, step[1])(x, guidance[step[2]][step[3]])
             elif kind == "save":
                 rem[step[1]] = x
-        return self.disp_final(x, guidance["lg1"], guidance["lg2"])
+            elif kind == "head" and self.training:
+                outputs.append(getattr(self, step[1])(x))
+        final = self.disp_final(x, guidance["lg1"], guidance["lg2"])
+        return outputs + [final] if self.training else final

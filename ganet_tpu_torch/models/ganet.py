@@ -1,4 +1,4 @@
-"""Top-level GANet, eval forward (counterpart of `ganet_tpu/models/ganet.py`).
+"""Top-level GANet (counterpart of `ganet_tpu/models/ganet.py`).
 
     feature(left), feature(right)        one batched call, 1/3 resolution
     conv_x / conv_y                      per-view projection
@@ -7,7 +7,10 @@
     cost aggregation                     3D hourglass + SGA, LGA head
 
 Takes (B, H, W, 3) images, as the JAX package does, and returns the
-(B, H, W) disparity map.
+(B, H, W) disparity map in eval mode, or in train mode (`model.train()`)
+the list of every head's map for deep supervision, the final map last.
+BatchNorm follows the mode: batch statistics and running-statistic updates
+in train mode, running statistics in eval mode.
 """
 
 from __future__ import annotations
@@ -34,11 +37,7 @@ class GANet(nn.Module):
         self.guidance = GuidanceNet(cfg)
         self.cost_agg = CostAggregation(cfg)
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the port runs the eval forward only; call model.eval()"
-            )
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
         cfg = self.cfg
         if left.dim() != 4 or left.shape != right.shape or left.shape[-1] != 3:
             raise ValueError(

@@ -26,10 +26,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ganet_tpu_torch.ops.normalize import at_least_f32
+
 
 def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a config dtype name ("float32" or "bfloat16")."""
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    """The torch dtype of a config dtype name ("float32" or "bfloat16";
+    "float64" measures the float32 noise of the others)."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}[name]
 
 
 def same_padding(
@@ -50,6 +53,31 @@ def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tenso
     t = bn.bias - bn.running_mean * s
     shape = (1, -1) + (1,) * (x.dim() - 2)
     return x * s.to(x.dtype).view(shape) + t.to(x.dtype).view(shape)
+
+
+def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """Train-mode BatchNorm over dim 1: batch moments in float32 (float64
+    for a float64 input) as E[x^2] - E[x]^2, the biased variance, clipped at
+    0 as flax does; normalised in that precision and cast to the input's
+    dtype.  The running statistics take the same biased variance with
+    momentum 0.1 (flax's 0.9): `F.batch_norm` would update them with the
+    unbiased one."""
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    xf = at_least_f32(x)
+    m = xf.mean(dim=dims)
+    v = torch.clamp_min((xf * xf).mean(dim=dims) - m * m, 0.0)
+    with torch.no_grad():
+        bn.running_mean.lerp_(m.to(bn.running_mean.dtype), bn.momentum)
+        bn.running_var.lerp_(v.to(bn.running_var.dtype), bn.momentum)
+        bn.num_batches_tracked += 1
+    s = bn.weight / torch.sqrt(v + bn.eps)
+    return ((xf - m.view(shape)) * s.view(shape) + bn.bias.view(shape)).to(x.dtype)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """`bn_train` when `bn` is in train mode, else `bn_eval`."""
+    return bn_train(x, bn) if bn.training else bn_eval(x, bn)
 
 
 def conv_same(x: torch.Tensor, conv: nn.Module, stride: int = 1) -> torch.Tensor:
@@ -102,7 +130,7 @@ class BasicConv(nn.Module):
         else:
             x = conv_same(x, self.conv, self.stride)
         if self.bn is not None:
-            x = bn_eval(x, self.bn)
+            x = batch_norm(x, self.bn)
         if self.relu:
             x = F.relu(x)
         return x

@@ -5,6 +5,11 @@
 tensors), "torch" (the plain version on any device) or "kernel" (the
 kernel wrapper, which runs the plain version only for a CPU tensor and
 otherwise launches the kernel or raises).
+
+Every route is differentiable.  "kernel" (and "auto" on CUDA) goes through
+the wrappers' autograd Functions where a gradient is wanted, whose
+backward launches the gradient kernels (K3 for SGA, K4 for LGA); "torch"
+is autograd through the plain forward.
 """
 
 from __future__ import annotations

@@ -11,8 +11,13 @@ channels are in (k, dy, dx) row-major order, k: 0 -> d, 1 -> d-1,
 Layouts: x is (B, D, H, W) everywhere.  The public functions take the
 guidance as (B, H, W, 3*K*K), the JAX package's layout; the `*_nchw`
 functions take it as (B, 3*K*K, H, W), the layout the model's guidance
-conv emits and the kernel reads.  Sums are float32; each pass rounds its
-output to the input dtype.
+conv emits and the kernel reads.  Sums are float32 (float64 for a float64
+input); each pass rounds its output to the input dtype.
+
+Gradients.  Where a gradient is wanted, each pass runs `LGAFunction`, whose
+backward is K4 (`csrc/lga_bwd.cu`) on CUDA tensors and its plain version
+`lga_bwd_plain` on CPU tensors: dx is the transposed stencil and dg sums
+over D in float32 before it is rounded to the guidance dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ganet_tpu_torch.ops import _build
+from ganet_tpu_torch.ops.normalize import at_least_f32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,9 +40,9 @@ def _lga_once_plain(x: torch.Tensor, g75: torch.Tensor, radius: int) -> torch.Te
     if g75.shape[1] != 3 * K * K:
         raise ValueError(f"guidance must have {3 * K * K} channels, got {tuple(g75.shape)}")
     r = radius
-    xp = F.pad(x.float(), (r, r, r, r, 1, 1))  # zero halo in W, H and D
-    gf = g75.float()
-    acc = torch.zeros((B, D, H, W), dtype=torch.float32, device=x.device)
+    xp = F.pad(at_least_f32(x), (r, r, r, r, 1, 1))  # zero halo in W, H and D
+    gf = at_least_f32(g75)
+    acc = torch.zeros((B, D, H, W), dtype=xp.dtype, device=x.device)
     # filter k reads the padded D slice d + dk: k0 -> d, k1 -> d-1, k2 -> d+1.
     for k, dk in ((0, 1), (1, 0), (2, 2)):
         for iy in range(K):
@@ -44,6 +50,45 @@ def _lga_once_plain(x: torch.Tensor, g75: torch.Tensor, radius: int) -> torch.Te
                 gch = gf[:, k * K * K + iy * K + ix, None]
                 acc += gch * xp[:, dk : dk + D, iy : iy + H, ix : ix + W]
     return acc
+
+
+def lga_bwd_plain(
+    x: torch.Tensor, g75: torch.Tensor, gbar: torch.Tensor, radius: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `lga_bwd_kernel`: the gradient of one pass.
+
+    x, gbar (B, D, H, W); g75 (B, 3*K*K, H, W) -> (dx in x's dtype, dg in
+    g75's dtype), with offsets o = (dy, dx) in [-R, R]^2:
+
+        dx(q, e)   = sum_o g0(q-o, o) gbar(q-o, e) + g1(q-o, o) gbar(q-o, e+1)
+                                                 + g2(q-o, o) gbar(q-o, e-1)
+        dg_k(p, o) = sum_d gbar(p, d) x(p+o, d+delta_k),  delta = 0, -1, +1
+
+    with zeros outside the image and outside [0, D).
+    """
+    B, D, H, W = x.shape
+    K = 2 * radius + 1
+    if g75.shape[1] != 3 * K * K:
+        raise ValueError(f"guidance must have {3 * K * K} channels, got {tuple(g75.shape)}")
+    r = radius
+    xp = F.pad(at_least_f32(x), (r, r, r, r, 1, 1))
+    bp = F.pad(at_least_f32(gbar), (r, r, r, r, 1, 1))
+    gp = F.pad(at_least_f32(g75), (r, r, r, r))
+    bf = bp[:, 1 : D + 1, r : r + H, r : r + W]
+    dx = torch.zeros((B, D, H, W), dtype=xp.dtype, device=x.device)
+    dg = torch.empty((B, 3 * K * K, H, W), dtype=xp.dtype, device=x.device)
+    # filter k: x slice d + delta_k (padded index dk), gbar slice e - delta_k (db).
+    for k, dk, db in ((0, 1, 1), (1, 0, 2), (2, 2, 0)):
+        for iy in range(K):
+            for ix in range(K):
+                ch = k * K * K + iy * K + ix
+                xs = xp[:, dk : dk + D, iy : iy + H, ix : ix + W]
+                dg[:, ch] = (bf * xs).sum(dim=1)
+                # source pixel q - o lies at padded offset (2r - iy, 2r - ix).
+                jy, jx = 2 * r - iy, 2 * r - ix
+                gsrc = gp[:, ch, None, jy : jy + H, jx : jx + W]
+                dx += gsrc * bp[:, db : db + D, jy : jy + H, jx : jx + W]
+    return dx.to(x.dtype), dg.to(g75.dtype)
 
 
 def lga_reference_nchw(
@@ -106,11 +151,87 @@ def lga_kernel(x: torch.Tensor, g75: torch.Tensor, radius: int) -> torch.Tensor:
 lga_kernel.launches = 0
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("lga_bwd")
+    fn = lib.lga_bwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return lib
+
+
+def lga_bwd_kernel(
+    x: torch.Tensor, g75: torch.Tensor, gbar: torch.Tensor, radius: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch (one pass's gradient, K4) on CUDA tensors: x and gbar
+    (B, D, H, W), g75 (B, 3*K*K, H, W), contiguous, of one dtype (float32
+    or bfloat16).  Returns (dx, dg) in that dtype."""
+    if not x.is_cuda:
+        raise ValueError(f"lga_bwd_kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES or g75.dtype != x.dtype or gbar.dtype != x.dtype:
+        raise TypeError(
+            f"lga bwd kernel takes float32 or bfloat16, got {x.dtype}/{g75.dtype}/{gbar.dtype}"
+        )
+    if radius not in (1, 2):
+        raise ValueError(f"lga bwd kernel takes radius 1 or 2, got {radius}")
+    if x.dim() != 4 or any(not t.is_contiguous() for t in (x, g75, gbar)):
+        raise ValueError("lga bwd kernel takes contiguous (B, D, H, W) volumes and guidance")
+    B, D, H, W = x.shape
+    K = 2 * radius + 1
+    if tuple(g75.shape) != (B, 3 * K * K, H, W) or g75.device != x.device:
+        raise ValueError(f"guidance {tuple(g75.shape)} does not match x {tuple(x.shape)}")
+    if gbar.shape != x.shape or gbar.device != x.device:
+        raise ValueError(f"gbar {tuple(gbar.shape)} does not match x {tuple(x.shape)}")
+    lib = _bwd_lib()
+    dx = torch.empty_like(x)
+    dg = torch.empty_like(g75)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = lib.lga_bwd(
+            x.data_ptr(), g75.data_ptr(), gbar.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+            B, D, H, W, radius, _DTYPES[x.dtype], stream,
+        )
+    lga_bwd_kernel.launches += 1
+    _build.check(status, "lga_bwd")
+    return dx, dg
+
+
+lga_bwd_kernel.launches = 0
+
+
+class LGAFunction(torch.autograd.Function):
+    """One LGA pass with its gradient; residuals (x, g75).  CUDA tensors
+    launch K2 and K4, CPU tensors run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, g75: torch.Tensor, radius: int) -> torch.Tensor:
+        ctx.radius = radius
+        ctx.save_for_backward(x, g75)
+        if x.is_cuda:
+            return lga_kernel(x, g75, radius)
+        return _lga_once_plain(x, g75, radius).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, g75 = ctx.saved_tensors
+        g = g.contiguous()
+        if x.is_cuda:
+            dx, dg = lga_bwd_kernel(x, g75, g, ctx.radius)
+        else:
+            dx, dg = lga_bwd_plain(x, g75, g, ctx.radius)
+        return dx, dg, None
+
+
 def lga_nchw(
     x: torch.Tensor, g75: torch.Tensor, radius: int = 2, repeats: int = 1
 ) -> torch.Tensor:
-    """LGA with guidance (B, 3*K*K, H, W): one kernel launch per pass on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    """LGA with guidance (B, 3*K*K, H, W).  Where a gradient is wanted: one
+    `LGAFunction` per pass.  Otherwise one kernel launch per pass on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if torch.is_grad_enabled() and (x.requires_grad or g75.requires_grad):
+        for _ in range(repeats):
+            x = LGAFunction.apply(x, g75, radius)
+        return x
     if x.device.type == "cpu":
         return lga_reference_nchw(x, g75, radius, repeats)
     for _ in range(repeats):

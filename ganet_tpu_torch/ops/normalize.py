@@ -1,4 +1,5 @@
-"""Weight normalisation (counterpart of `ganet_tpu/ops/normalize.py`).
+"""Weight normalisation (counterpart of `ganet_tpu/ops/normalize.py`), and
+the precision that sums and normalisations run at.
 
 The eps is 1e-8 as in the JAX package; `torch.nn.functional.normalize`
 uses 1e-12, so it is not used here.
@@ -7,6 +8,12 @@ uses 1e-12, so it is not used here.
 from __future__ import annotations
 
 import torch
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """`t` in float32, or in float64 when it is float64: the precision of
+    the port's reductions, normalisations and carries."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def l1_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:

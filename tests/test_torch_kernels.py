@@ -6,10 +6,12 @@ JAX, so it also runs where only PyTorch is installed:
     python3 -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerances: float32 within 1e-5 abs + 1e-5 rel (the kernels sum the same
-terms in another order, with FMA contraction).  bfloat16 against the plain
-version on the same bf16 inputs, which sums in float32 and rounds where the
-kernel rounds: within one bf16 ulp of the value (2^-7 |ref|) plus 2^-9
-max|ref| for a rounding difference that an earlier pass hands on.
+terms in another order, with FMA contraction); the gradient kernels, whose
+sums over D (dw, dg) and float32 carry run up to a few hundred terms,
+within 1e-5 max|ref| + 1e-5 rel.  bfloat16 against the plain version on
+the same bf16 inputs, which sums in float32 and rounds where the kernel
+rounds: within one bf16 ulp of the value (2^-7 |ref|) plus 2^-9 max|ref|
+for a rounding difference that an earlier pass hands on.
 """
 
 import pytest
@@ -31,12 +33,12 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _close(got, ref):
+def _close(got, ref, summed=False):
     assert got.dtype == ref.dtype and got.shape == ref.shape
     g, r = got.float(), ref.float()
     err = (g - r).abs()
     if got.dtype == torch.float32:
-        bound = 1e-5 + 1e-5 * r.abs()
+        bound = 1e-5 * (r.abs().max() if summed else 1.0) + 1e-5 * r.abs()
     else:
         bound = 2.0**-7 * r.abs() + 2.0**-9 * r.abs().max()
     assert bool((err <= bound).all()), f"max err {err.max().item():.3e}"
@@ -120,3 +122,102 @@ def test_model_kernels_match_plain(cuda):
     # float32 noise of the whole forward (about 4e-4 px at this shape on the
     # CPU); the kernels and cuDNN sum in other orders.
     assert (outs[0] - outs[1]).abs().max().item() <= 5e-3
+
+
+# (N, D, H, W) of the gradient kernels: D not a multiple of 32 (or of the
+# 8 or 16 rows of d), H and W not multiples of the 32 or 16 lanes nor of
+# the 8-step chunk of the W sweeps, and the first step of a sweep alone.
+SGA_BWD_SHAPES = [(2, 4, 6, 10), (3, 13, 33, 37), (1, 64, 20, 70), (2, 37, 17, 9), (1, 5, 1, 12)]
+
+
+def _tie_volume(gen, shape, dtype):
+    """Values on a coarse grid, so that the argmax over d ties often."""
+    return (torch.randint(-3, 4, shape, device="cuda", generator=gen) / 2.0).to(dtype)
+
+
+@pytest.mark.parametrize("shape", SGA_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sga_bwd_kernel(cuda, shape, dtype):
+    N, D, H, W = shape
+    x = _tie_volume(cuda, shape, dtype)
+    w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda), dim=2).to(dtype)
+    gbar = torch.randn(shape, device="cuda", generator=cuda).to(dtype)
+    dw = torch.empty_like(w)
+    dx_sum = None
+    want_sum = torch.zeros(shape, device="cuda")
+    for direction, (axis, reverse) in enumerate(S.DIRECTIONS):
+        a = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction)
+        wk = w[:, direction].contiguous()
+        want_dx, want_dw = S.sga_sweep_bwd_plain(x, wk, a, gbar, axis, reverse)
+        got_dx, got_dw = S.sga_sweep_bwd_kernel(x, wk, a, gbar, axis, reverse)
+        _close(got_dx, want_dx, summed=True)
+        _close(got_dw, want_dw, summed=True)
+        dx_sum, _ = S.sga_sweep_bwd_kernel(
+            x, w, a, gbar, axis, reverse, direction=direction, dx=dx_sum, dw=dw
+        )
+        assert torch.equal(dw[:, direction], got_dw)
+        want_sum += want_dx.float()
+    if dtype == torch.float32:  # in bf16 each in-place add rounds once more
+        _close(dx_sum, want_sum, summed=True)
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga_bwd_kernel(cuda, radius, dtype):
+    B, D, H, W = 2, 11, 19, 45  # ragged 8x32 tiles
+    K = 2 * radius + 1
+    x = torch.randn((B, D, H, W), device="cuda", generator=cuda).to(dtype)
+    g = l1_normalize(torch.randn((B, 3 * K * K, H, W), device="cuda", generator=cuda), dim=1).to(dtype)
+    gbar = torch.randn((B, D, H, W), device="cuda", generator=cuda).to(dtype)
+    got_dx, got_dg = G.lga_bwd_kernel(x, g, gbar, radius)
+    want_dx, want_dg = G.lga_bwd_plain(x, g, gbar, radius)
+    _close(got_dx, want_dx, summed=True)
+    _close(got_dg, want_dg, summed=True)
+
+
+@pytest.mark.parametrize("op", ["sga", "lga"])
+def test_gradient_flows_through_the_kernels(cuda, op):
+    """A CUDA input that requires grad gets, through `dispatch` on the
+    kernel route, the gradient of the plain version (autograd of the plain
+    forward); the kernel route once returned a tensor with no grad_fn."""
+    from ganet_tpu_torch.ops import dispatch
+
+    if op == "sga":
+        x = _tie_volume(cuda, (1, 3, 9, 12, 20), torch.float32)
+        w = l1_normalize(torch.randn((1, 3, 4, 5, 12, 20), device="cuda", generator=cuda), dim=3)
+        fn = dispatch.sga_ncdhw
+        args = ()
+    else:
+        x = torch.randn((2, 7, 12, 40), device="cuda", generator=cuda)
+        w = l1_normalize(torch.randn((2, 75, 12, 40), device="cuda", generator=cuda), dim=1)
+        fn = dispatch.lga_nchw
+        args = (2, 2)
+    gout = torch.randn(x.shape, device="cuda", generator=cuda)
+    grads = {}
+    for impl in ("auto", "torch"):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = fn(xr, wr, *args, impl=impl)
+        assert out.grad_fn is not None
+        out.backward(gout)
+        grads[impl] = (xr.grad, wr.grad)
+    for got, want in zip(grads["auto"], grads["torch"]):
+        assert got.abs().max() > 0
+        _close(got, want, summed=True)
+
+
+def test_eval_route_fuses_in_place(cuda):
+    """Without a gradient, `sga` is four K1 launches max-accumulating into
+    one output: no K3 launch and no directional volume kept."""
+    x = torch.randn((1, 4, 16, 24, 40), device="cuda", generator=cuda)
+    w = torch.randn((1, 4, 4, 5, 24, 40), device="cuda", generator=cuda)
+    fwd, bwd = S.sga_sweep_kernel.launches, S.sga_sweep_bwd_kernel.launches
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = S.sga_ncdhw(x, w.requires_grad_())
+    torch.cuda.synchronize()
+    assert out.grad_fn is None
+    assert S.sga_sweep_kernel.launches == fwd + 4
+    assert S.sga_sweep_bwd_kernel.launches == bwd
+    assert torch.cuda.max_memory_allocated() - before <= out.numel() * out.element_size() + 4096
