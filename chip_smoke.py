@@ -26,17 +26,31 @@ CUDA toolkit.  Phases, each printing its lines:
      synthetic batches, through `create_train_state` and `make_train_step`;
      launch counts of each kernel in one step, the loss over steps on one
      batch, the step time, peak memory and a profile of the forward and the
-     backward.
+     backward;
+ 10. the seeded H-sweep kernel of the sharded wavefront (K5) against its
+     plain version on a 128-column window of the per-shard full-res block,
+     seeded and not, forward and reverse, float32 and bfloat16;
+ 11. its gradient kernel (K6) likewise at the per-shard training block,
+     with dx and dw added into and the seed's cotangent;
+ 12. the sharded path: 4 ranks share the card, joined by gloo (boundary
+     rows staged through the host; NCCL refuses two ranks on one device),
+     through `parallel/launch.py`; H-sharded SGA (wavefront) and LGA (halo)
+     forward and gradients at GANet_deep's full widths against the
+     unsharded kernels in this process; launch counts of K1, K3, K5, K6 on
+     every rank, and wall times per rank (4 ranks on one card: not a
+     multi-GPU time).
 
-Any failed check raises and the script exits non-zero.  On success the
-line before the last is a JSON object with each kernel's launches on its
-path, error, times and bound, and the last line is
+`--phases 10,11` runs only the listed phases (after phase 1) and prints no
+result line.  Any failed check raises and the script exits non-zero.  On
+success the line before the last is a JSON object with each kernel's
+launches on its path, error, times and bound, and the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or run outside a
 checkout, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -259,8 +273,8 @@ def phase_main_path(torch, gen, smi, entries):
     torch.cuda.synchronize()
     launches = read_counts(S, G)
     log(f"[5] launches in one forward: {launches}")
-    if launches["sga_bwd"] or launches["lga_bwd"]:
-        raise AssertionError("the eval forward launched a gradient kernel")
+    if any(launches[k] for k in ("sga_bwd", "lga_bwd", "sga_fwd_seeded", "sga_bwd_seeded")):
+        raise AssertionError("the eval forward launched a gradient or a seeded kernel")
     n_sga = 4 * (cfg.num_sga_full + cfg.num_sga_half)
     n_lga = 2 * cfg.lga_repeats
     if tuple(disp.shape) != (1, H, W):
@@ -291,7 +305,8 @@ def phase_main_path(torch, gen, smi, entries):
 
 def reset_counts(S, G) -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in (S.sga_sweep_kernel, G.lga_kernel, S.sga_sweep_bwd_kernel, G.lga_bwd_kernel):
+    for fn in (S.sga_sweep_kernel, G.lga_kernel, S.sga_sweep_bwd_kernel, G.lga_bwd_kernel,
+               S.sga_sweep_seeded_kernel, S.sga_sweep_bwd_seeded_kernel):
         fn.launches = 0
 
 
@@ -299,6 +314,8 @@ def read_counts(S, G) -> dict:
     return {
         "sga_fwd": S.sga_sweep_kernel.launches, "lga_fwd": G.lga_kernel.launches,
         "sga_bwd": S.sga_sweep_bwd_kernel.launches, "lga_bwd": G.lga_bwd_kernel.launches,
+        "sga_fwd_seeded": S.sga_sweep_seeded_kernel.launches,
+        "sga_bwd_seeded": S.sga_sweep_bwd_seeded_kernel.launches,
     }
 
 
@@ -448,6 +465,257 @@ def phase_lga_bwd(torch, gen):
     return entry
 
 
+def window_bound(n_vol: int, n_row: int, n_planes: int, elem: int, flops: int):
+    """(bound ms, "bytes" or "operations") of a seeded sweep that moves
+    `n_vol` volume elements, `n_row` boundary-row elements (float32) and
+    `n_planes` weight elements."""
+    nbytes = (n_vol + n_planes) * elem + 4 * n_row
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def phase_seeded_fwd(torch, gen):
+    """K5 at the wavefront's per-shard chunk shape (576x960 full-res block
+    over 4 shards: (32, 64, 48, W=320), a 128-column window); returns the
+    JSON entry (bf16, valid, one launch)."""
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.ops.normalize import l1_normalize
+
+    N, D, H, W, col0, cols = 32, 64, 48, 320, 128, 128
+    x32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
+    w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
+    s32 = torch.randn((N, D, cols), device="cuda", generator=gen)
+    win = slice(col0, col0 + cols)
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, seed = x32.to(dtype), w32.to(dtype), s32.to(dtype)
+        tag = f"sga_fwd_seeded {tuple(x.shape)} [{col0}:{col0 + cols}] {str(dtype)[6:]}"
+        err = 0.0
+        for direction, reverse in ((2, False), (3, True)):
+            for valid in (True, False):
+                out = torch.zeros_like(x)
+                out, bnd = S.sga_sweep_seeded_kernel(
+                    x, w, reverse, seed, valid, direction=direction, col0=col0, cols=cols, out=out)
+                ref = S.sga_sweep_plain(x[..., win], w[:, direction, :, :, win], "h", reverse,
+                                        seed, valid).to(dtype)
+                name = f"{tag} {'bt' if reverse else 'tb'} valid={valid}"
+                err = max(err, compare(torch, f"{name} out", out[..., win], ref))
+                compare(torch, f"{name} boundary", bnd, ref[:, :, 0 if reverse else -1])
+                if out[..., :col0].abs().max().item() or out[..., col0 + cols:].abs().max().item():
+                    raise AssertionError(f"{name}: the kernel wrote outside its column window")
+                del out, bnd, ref
+        out = torch.empty_like(x)
+        ms = cuda_ms(torch, lambda: S.sga_sweep_seeded_kernel(
+            x, w, False, seed, True, direction=2, col0=col0, cols=cols, out=out), reps=20)
+        plain_ms = cuda_ms(torch, lambda: S.sga_sweep_plain(
+            x[..., win], w[:, 2, :, :, win], "h", False, seed, True), reps=1)
+        vol = N * D * H * cols
+        # Reads x in the window, 5 weight planes and the seed; writes A and the boundary row.
+        bound_ms, by, nbytes = window_bound(2 * vol, 0, 5 * N * H * cols + 2 * N * D * cols,
+                                            x.element_size(), 10 * vol)
+        log(f"  {tag}: kernel {ms:.4f} ms per launch, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {10 * vol / 1e9:.3f} GFLOP)")
+        if dtype == torch.bfloat16:
+            entry = {
+                "name": "sga_fwd_seeded", "route": "cuda",
+                "source": "ganet_tpu_torch/csrc/sga_fwd_seeded.cu",
+                "replaces": "ganet_tpu/ops/sga_pallas.py:115",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            }
+        del x, w, seed, out
+    del x32, w32, s32
+    return entry
+
+
+def phase_seeded_bwd(torch, gen):
+    """K6 at the training shape's per-shard tail chunk (240x528 batch 2
+    full-res block over 4 shards: (64, 64, 20, W=176), columns 48..176);
+    returns the JSON entry (bf16, valid, one launch)."""
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.ops.normalize import l1_normalize
+
+    N, D, H, W, col0, cols = 64, 64, 20, 176, 48, 128
+    x32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
+    w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
+    s32 = torch.randn((N, D, cols), device="cuda", generator=gen)
+    b32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
+    dbound = torch.randn((N, D, cols), device="cuda", generator=gen)
+    dx0_32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
+    dw0_32 = torch.randn((N, 4, 5, H, W), device="cuda", generator=gen)
+    win = slice(col0, col0 + cols)
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, seed, gbar = x32.to(dtype), w32.to(dtype), s32.to(dtype), b32.to(dtype)
+        tag = f"sga_bwd_seeded {tuple(x.shape)} [{col0}:{col0 + cols}] {str(dtype)[6:]}"
+        err = 0.0
+        for direction, reverse in ((2, False), (3, True)):
+            for valid in (True, False):
+                a, _ = S.sga_sweep_seeded_kernel(x, w, reverse, seed, valid, direction=direction,
+                                                 col0=col0, cols=cols, out=torch.zeros_like(x))
+                dx0, dw0 = dx0_32.to(dtype), dw0_32.to(dtype)
+                dx, dw, dseed = S.sga_sweep_bwd_seeded_kernel(
+                    x, w, a, gbar, reverse, seed, valid, direction=direction, col0=col0,
+                    cols=cols, dboundary=dbound, dx=dx0.clone(), dw=dw0.clone())
+                rdx, rdw, rds = S.sga_sweep_bwd_plain(
+                    x[..., win], w[:, direction, :, :, win], a[..., win], gbar[..., win], "h",
+                    reverse, seed, valid, dbound)
+                name = f"{tag} {'bt' if reverse else 'tb'} valid={valid}"
+                err = max(err, compare(torch, f"{name} dx", dx[..., win],
+                                       (dx0[..., win].float() + rdx.float()).to(dtype), summed=True))
+                err = max(err, compare(torch, f"{name} dw", dw[:, direction, :, :, win],
+                                       (dw0[:, direction, :, :, win].float() + rdw.float()).to(dtype),
+                                       summed=True))
+                err = max(err, compare(torch, f"{name} dseed", dseed, rds, summed=True))
+                outside = torch.ones_like(dx, dtype=torch.bool)
+                outside[..., win] = False
+                if not (torch.equal(dx[outside], dx0[outside]) and torch.equal(
+                        dw[:, direction][outside[:, :5]], dw0[:, direction][outside[:, :5]])
+                        and torch.equal(dw[:, :2], dw0[:, :2])):
+                    raise AssertionError(f"{name}: the kernel wrote outside its window or slot")
+                del a, dx, dw, dseed, rdx, rdw, rds, dx0, dw0
+        a, _ = S.sga_sweep_seeded_kernel(x, w, False, seed, True, direction=2, col0=col0,
+                                         cols=cols, out=torch.zeros_like(x))
+        dx, dw = torch.zeros_like(x), torch.zeros_like(w)
+        ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_seeded_kernel(
+            x, w, a, gbar, False, seed, True, direction=2, col0=col0, cols=cols,
+            dboundary=dbound, dx=dx, dw=dw), reps=20)
+        plain_ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_plain(
+            x[..., win], w[:, 2, :, :, win], a[..., win], gbar[..., win], "h", False, seed, True,
+            dbound), reps=1)
+        vol = N * D * H * cols
+        # Reads x, A, gbar, 5 weight planes, the seed and dboundary; writes dx, dw and dseed.
+        bound_ms, by, nbytes = window_bound(4 * vol, 2 * N * D * cols,
+                                            10 * N * H * cols + N * D * cols,
+                                            x.element_size(), 25 * vol)
+        log(f"  {tag}: kernel {ms:.4f} ms per launch, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {25 * vol / 1e9:.3f} GFLOP)")
+        if dtype == torch.bfloat16:
+            entry = {
+                "name": "sga_bwd_seeded", "route": "cuda",
+                "source": "ganet_tpu_torch/csrc/sga_bwd_seeded.cu",
+                "replaces": "ganet_tpu/ops/sga_pallas.py:295",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            }
+        del x, w, seed, gbar, a, dx, dw
+    del x32, w32, s32, b32, dbound, dx0_32, dw0_32
+    return entry
+
+
+# Phase 12: the sharded path on 4 ranks sharing the card, over gloo.  The
+# f32 gradients against the unsharded kernels, norm-relative; the bf16
+# forward differs from the unsharded one where the boundary row is rounded
+# to bf16 at each shard border (the unsharded carry stays f32): a few ulps
+# of max|ref|.
+SHARDS = 4
+SHARDED_GRAD_TOL = 1e-4
+SHARDED_BF16_ULPS = 4
+
+
+def sharded_cases():
+    """The cases of phase 12 (see ganet_tpu_torch/parallel/cases.py)."""
+    full = (1, 32, 64, 192, 320)  # GANet_deep's full-res SGA block at 576x960
+    train = (2, 32, 64, 80, 176)  # ... and at the 240x528 batch-2 training crop
+    return [
+        dict(name="sga_bf16", op="sga", shape=full, seed=1, dtype="bfloat16", reps=5),
+        dict(name="sga_f32", op="sga", shape=full, seed=1, dtype="float32"),
+        dict(name="sga_grad", op="sga", shape=train, seed=2, dtype="float32", grad=True, reps=3),
+        dict(name="lga_f32", op="lga", shape=(1, 192, 576, 960), seed=3, repeats=2, dtype="float32"),
+        dict(name="lga_grad", op="lga", shape=(2, 192, 240, 528), seed=4, repeats=2,
+             dtype="float32", grad=True),
+    ]
+
+
+def norm_rel(torch, got, ref) -> float:
+    return ((got.double() - ref.double()).norm() / ref.double().norm().clamp_min(1e-30)).item()
+
+
+def phase_sharded(torch, smi, entries):
+    """Sharded SGA (K1, K5 / K3, K6) and LGA (K2 / K4) on SHARDS ranks that
+    share the card, against the unsharded kernels in this process."""
+    import tempfile
+
+    from ganet_tpu_torch.ops import lga as G
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.parallel import cases as K
+    from ganet_tpu_torch.parallel.launch import launch
+    from ganet_tpu_torch.parallel.sharded_sga import chunk_layout
+
+    cases = sharded_cases()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        launch(K.run_cases, SHARDS, (cases, out_dir, "cuda"), backend="gloo", device="cuda")
+        log(f"[12] {SHARDS} ranks on one card (gloo, boundary rows staged through the host): "
+            f"all cases in {time.perf_counter() - t0:.1f} s")
+        results = {c["name"]: K.gather(c, out_dir, SHARDS) for c in cases}
+    for case in cases:
+        name, res = case["name"], results[case["name"]]
+        dtype = getattr(torch, case["dtype"])
+        inputs = {k: torch.from_numpy(v).cuda().to(dtype) for k, v in K.make_inputs(case).items()}
+        grad = bool(case.get("grad"))
+        x = inputs["x"].requires_grad_(grad)
+        other = inputs["w" if case["op"] == "sga" else "g"].requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            if case["op"] == "sga":
+                ref = S.sga_ncdhw(x, other)
+            else:
+                ref = G.lga_nchw(x, other, 2, case["repeats"])
+            if grad:
+                ref.backward(inputs["gbar"])
+        ref = ref.detach()
+        got = res["out"].cuda()
+        tag = f"[12] sharded {name} {tuple(case['shape'])} over {SHARDS} ranks vs unsharded"
+        if dtype == torch.float32:
+            compare(torch, f"{tag}: out", got, ref)
+        else:
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            ok = err <= SHARDED_BF16_ULPS * BF16_ULP * scale
+            log(f"  {tag}: out max_abs_err={err:.3e} max|ref|={scale:.3e} = "
+                f"{err / (BF16_ULP * scale):.2f} bf16 ulps of max|ref| (tol {SHARDED_BF16_ULPS}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: the sharded bf16 forward is off the unsharded one")
+        if grad:
+            for k, r in (("dx", x.grad), ("dw" if case["op"] == "sga" else "dg", other.grad)):
+                e = norm_rel(torch, res[k].cuda(), r)
+                ok = e <= SHARDED_GRAD_TOL
+                log(f"  {tag}: {k} norm-relative {e:.3e} (tol {SHARDED_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{tag}: {k} disagrees with the unsharded gradient")
+        # Launches on every rank: 2 K1 + 2 x nchunks K5 forward, 2 K3 + 2 x nchunks K6 backward.
+        if case["op"] == "sga":
+            n = len(chunk_layout(case["shape"][-1], case.get("chunks", 0))[1])
+            want = {"sga_fwd": 2, "sga_fwd_seeded": 2 * n, "sga_bwd": 2 * grad, "sga_bwd_seeded": 2 * n * grad,
+                    "lga_fwd": 0, "lga_bwd": 0}
+        else:
+            want = {"sga_fwd": 0, "sga_fwd_seeded": 0, "sga_bwd": 0, "sga_bwd_seeded": 0,
+                    "lga_fwd": case["repeats"], "lga_bwd": case["repeats"] * grad}
+        for rank, got_counts in enumerate(res["launches"]):
+            if got_counts != want:
+                raise AssertionError(f"{tag}: rank {rank} launched {got_counts}, expected {want}")
+        log(f"  {tag}: launches on each rank {want}")
+        if res["times"][0]:
+            per_rank = [min(t) for t in res["times"]]
+            what = "forward and backward" if grad else "forward"
+            log(f"  {tag}: {what} wall time per rank, {SHARDS} ranks sharing one card (not a "
+                f"multi-GPU time): {', '.join(f'{t:.2f}' for t in per_rank)} ms (min of "
+                f"{len(res['times'][0])}); card {smi}")
+            if case["op"] == "sga" and not grad:
+                xs, ws = x.detach(), other.detach()
+                ms = cuda_ms(torch, lambda: S.sga_ncdhw(xs, ws), reps=5)
+                log(f"  {tag}: the unsharded K1 sga on the whole volume: {ms:.3f} ms")
+        if name == "sga_grad":
+            for e in entries:
+                if e["name"] in ("sga_fwd_seeded", "sga_bwd_seeded"):
+                    e["launches"] = sum(c[e["name"]] for c in res["launches"])
+        del inputs, x, other, ref, got, res
+        results[name] = None
+        torch.cuda.empty_cache()
+
+
 # Tolerance of phase 8, norm-relative: the kernels' gradients against the
 # plain versions', over all parameters and for the worst one.  The whole
 # model's float32 gradient is chaotic at the 1e-2 level: the argmax of each
@@ -542,7 +810,8 @@ def phase_train_path(torch, smi, entries):
     log(f"[9] launches in one train step: {launches}")
     n_sga = 4 * (cfg.model.num_sga_full + cfg.model.num_sga_half)
     n_lga = 2 * cfg.model.lga_repeats
-    want = {"sga_fwd": n_sga, "sga_bwd": n_sga, "lga_fwd": n_lga, "lga_bwd": n_lga}
+    want = {"sga_fwd": n_sga, "sga_bwd": n_sga, "lga_fwd": n_lga, "lga_bwd": n_lga,
+            "sga_fwd_seeded": 0, "sga_bwd_seeded": 0}
     if launches != want:
         raise AssertionError(f"expected launches {want} in one train step, got {launches}")
     for e in entries:
@@ -595,25 +864,53 @@ def main() -> int:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 1
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phase numbers to run (default: all; "
+                        "a partial run prints no result line)")
+    args = parser.parse_args()
+    only = {int(p) for p in args.phases.split(",") if p}
+    want = lambda n: not only or n in only  # noqa: E731
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     smi = phase_card(torch)
-    log("[2] K1 SGA sweep kernel vs plain version")
-    sga_entry = phase_sga(torch, gen)
-    log("[3] K2 LGA kernel vs plain version")
-    lga_entry = phase_lga(torch, gen)
-    phase_model_parity(torch, gen)
-    entries = [sga_entry, lga_entry]
-    phase_main_path(torch, gen, smi, entries)
-    log("[6] K3 SGA gradient-sweep kernel vs plain version")
-    entries.append(phase_sga_bwd(torch, gen))
-    log("[7] K4 LGA backward kernel vs plain version")
-    entries.append(phase_lga_bwd(torch, gen))
-    phase_grad_parity(torch)
-    phase_train_path(torch, smi, entries)
+    entries = []
+    if want(2):
+        log("[2] K1 SGA sweep kernel vs plain version")
+        entries.append(phase_sga(torch, gen))
+    if want(3):
+        log("[3] K2 LGA kernel vs plain version")
+        entries.append(phase_lga(torch, gen))
+    if want(4):
+        phase_model_parity(torch, gen)
+    if want(5):
+        phase_main_path(torch, gen, smi, entries)
+    if want(6):
+        log("[6] K3 SGA gradient-sweep kernel vs plain version")
+        entries.append(phase_sga_bwd(torch, gen))
+    if want(7):
+        log("[7] K4 LGA backward kernel vs plain version")
+        entries.append(phase_lga_bwd(torch, gen))
+    if want(8):
+        phase_grad_parity(torch)
+    if want(9):
+        phase_train_path(torch, smi, entries)
+    if want(10):
+        log(f"[10] K5 seeded SGA sweep kernel vs plain version ({time.perf_counter() - t0:.1f} s)")
+        entries.append(phase_seeded_fwd(torch, gen))
+    if want(11):
+        log(f"[11] K6 seeded SGA gradient-sweep kernel vs plain version ({time.perf_counter() - t0:.1f} s)")
+        entries.append(phase_seeded_bwd(torch, gen))
+    if want(12):
+        log(f"[12] sharded SGA wavefront and halo LGA on {SHARDS} ranks sharing the card "
+            f"({time.perf_counter() - t0:.1f} s)")
+        phase_sharded(torch, smi, entries)
     log(f"total {time.perf_counter() - t0:.1f} s")
+    if only:
+        return 0
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

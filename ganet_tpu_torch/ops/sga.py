@@ -28,6 +28,14 @@ evenly, as `jnp.maximum` does), and each direction's gradient goes through
 the reverse sweep (K3, `csrc/sga_bwd.cu`, or its plain version
 `sga_sweep_bwd_plain`).  Without a gradient the fused in-place max of four
 forward launches runs and no directional volume is kept.
+
+Seeded sweeps.  The H-sharded wavefront (`ganet_tpu_torch/parallel/
+sharded_sga.py`) runs each vertical sweep chunk by chunk with the carry
+entering the first step taken from the upstream shard: K5
+(`csrc/sga_fwd_seeded.cu`, `sga_sweep_seeded_kernel`) and its gradient K6
+(`csrc/sga_bwd_seeded.cu`, `sga_sweep_bwd_seeded_kernel`, which also
+returns the seed's cotangent), each on a column window of the volume;
+`SeededSweep` pairs them for one whole sweep.
 """
 
 from __future__ import annotations
@@ -50,16 +58,29 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------------------
 
 
-def sga_sweep_plain(x: torch.Tensor, w: torch.Tensor, axis: str, reverse: bool) -> torch.Tensor:
+def sga_sweep_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    axis: str,
+    reverse: bool,
+    initial: torch.Tensor | None = None,
+    initial_valid: bool = True,
+) -> torch.Tensor:
     """Plain version of `sga_sweep_kernel`, on its layout: x (N, D, H, W),
-    w (N, 5, H, W) -> float32 (N, D, H, W)."""
+    w (N, 5, H, W) -> float32 (N, D, H, W).
+
+    `initial` (N, D, M), M the axis across the sweep, is the carry entering
+    the sweep's first step (the seeded sweep of the H-sharded wavefront,
+    K5): with it and `initial_valid`, the first step is a full recurrence
+    step from the seed; with `initial_valid` False the first step copies x
+    and the seed is ignored (the pipeline's head shard)."""
     if axis not in ("h", "w"):
         raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
     dim = 2 if axis == "h" else 3
     xf, wf = at_least_f32(x), at_least_f32(w)
     out = torch.empty_like(xf)
     steps = range(x.shape[dim] - 1, -1, -1) if reverse else range(x.shape[dim])
-    prev = None
+    prev = at_least_f32(initial) if initial is not None and initial_valid else None
     for l in steps:
         xt = xf.select(dim, l)  # (N, D, M)
         if prev is None:
@@ -83,7 +104,10 @@ def sga_sweep_bwd_plain(
     gbar: torch.Tensor,
     axis: str,
     reverse: bool,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    seed: torch.Tensor | None = None,
+    valid: bool = True,
+    dboundary: torch.Tensor | None = None,
+):
     """Plain version of `sga_sweep_bwd_kernel`: the gradient of one sweep,
     written out as the transposed recurrence (not autograd of the forward).
 
@@ -100,6 +124,14 @@ def sga_sweep_bwd_plain(
 
     where A' is A at the previous position of the sweep and e is the
     indicator of argmax_d A', divided by the number of tied maxima.
+
+    Seeded sweep (plain version of `sga_sweep_bwd_seeded_kernel`, K6): with
+    `seed` (N, D, M) the function returns (dx, dw, dseed).  With `valid`
+    the first step is a full step whose A' is the seed, and dseed, float32,
+    is the carry after it; with `valid` False the first step is the copy
+    step above and dseed is 0.  `dboundary` (N, D, M), when given, is the
+    cotangent of the sweep's last row sent downstream: the carry starts at
+    it instead of 0.
     """
     if axis not in ("h", "w"):
         raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
@@ -109,16 +141,20 @@ def sga_sweep_bwd_plain(
     dw = torch.zeros_like(wf)
     L = x.shape[dim]
     first = L - 1 if reverse else 0
+    seeded = seed is not None and valid
     back = range(L) if reverse else range(L - 1, -1, -1)  # opposite to the sweep
     c = torch.zeros_like(xf.select(dim, 0))  # (N, D, M)
+    if dboundary is not None:
+        c = c + at_least_f32(dboundary)
     for l in back:
         g = gf.select(dim, l) + c
-        if l == first:
+        if l == first and not seeded:
             dx.select(dim, l).copy_(g)
+            c = torch.zeros_like(c)
             break
         wt = wf.select(dim, l)  # (N, 5, M)
         w0, w1, w2, w3, w4 = (wt[:, k : k + 1] for k in range(5))
-        ap = af.select(dim, l + 1 if reverse else l - 1)
+        ap = at_least_f32(seed) if l == first else af.select(dim, l + 1 if reverse else l - 1)
         ap_dm1 = F.pad(ap[:, :-1], (0, 0, 1, 0))
         ap_dp1 = F.pad(ap[:, 1:], (0, 0, 0, 1))
         ap_max = torch.amax(ap, dim=1, keepdim=True)
@@ -141,7 +177,9 @@ def sga_sweep_bwd_plain(
         g_up = F.pad(g[:, 1:], (0, 0, 0, 1))  # g(d+1)
         g_dn = F.pad(g[:, :-1], (0, 0, 1, 0))  # g(d-1)
         c = w1 * g + w2 * g_up + w3 * g_dn + w4 * gsum * eq
-    return dx.to(x.dtype), dw.to(w.dtype)
+    if seed is None:
+        return dx.to(x.dtype), dw.to(w.dtype)
+    return dx.to(x.dtype), dw.to(w.dtype), c
 
 
 def max_tree(a: list[torch.Tensor]) -> torch.Tensor:
@@ -378,6 +416,242 @@ def sga_sweep_bwd_kernel(
 
 
 sga_sweep_bwd_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# seeded H sweeps of the sharded wavefront (csrc/sga_fwd_seeded.cu, K5, and
+# csrc/sga_bwd_seeded.cu, K6)
+# ---------------------------------------------------------------------------
+
+
+def _window(x: torch.Tensor, w: torch.Tensor, direction: int | None, col0: int, cols: int | None):
+    """Check a seeded sweep's volume, weights and column window; returns
+    (cols, w_offset, w_nstride, this direction's weights as a view)."""
+    if x.dim() != 4 or not x.is_contiguous() or not w.is_contiguous():
+        raise ValueError("seeded sweep takes a contiguous (N, D, H, W) volume and weights")
+    N, D, H, W = x.shape
+    if direction is None:
+        if tuple(w.shape) != (N, 5, H, W):
+            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
+        w_offset, w_nstride, wd = 0, 5 * H * W, w
+    else:
+        if tuple(w.shape) != (N, 4, 5, H, W) or not 0 <= direction < 4:
+            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
+        w_offset, w_nstride, wd = direction * 5 * H * W, 20 * H * W, w[:, direction]
+    cols = W - col0 if cols is None else cols
+    if not (0 <= col0 and 0 < cols and col0 + cols <= W):
+        raise ValueError(f"column window [{col0}, {col0 + cols}) is not inside W={W}")
+    if w.device != x.device or w.dtype != x.dtype:
+        raise ValueError("x and w must share a device and a dtype")
+    return cols, w_offset, w_nstride, wd
+
+
+def _row(t: torch.Tensor | None, like: torch.Tensor, cols: int, dtype, name: str) -> None:
+    """Check a boundary row (N, D, cols)."""
+    N, D = like.shape[:2]
+    if t is None:
+        return
+    if tuple(t.shape) != (N, D, cols) or t.dtype != dtype or not t.is_contiguous() or t.device != like.device:
+        raise ValueError(f"{name} must be a contiguous {dtype} ({N}, {D}, {cols}), got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def _fwd_seeded_lib() -> ctypes.CDLL:
+    lib = _build.load("sga_fwd_seeded")
+    fn = lib.sga_sweep_fwd_seeded
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 8
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.sga_sweep_fwd_seeded_max_d.restype = ctypes.c_int
+        lib.sga_sweep_fwd_seeded_max_d.argtypes = []
+    return lib
+
+
+def sga_sweep_seeded_kernel(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    reverse: bool,
+    seed: torch.Tensor | None = None,
+    valid: bool = True,
+    *,
+    direction: int | None = None,
+    col0: int = 0,
+    cols: int | None = None,
+    out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One seeded sweep along H (K5) over the columns [col0, col0 + cols).
+
+    x: (N, D, H, W) contiguous float32 or bfloat16; w: (N, 5, H, W), or
+    (N, 4, 5, H, W) with `direction` selecting the set.  seed: (N, D, cols)
+    in x's dtype, the carry entering the first step when `valid`; with
+    `valid` False the first step copies x and the seed is not read.
+    out: the (N, D, H, W) tensor whose window the sweep writes (a new one
+    when None).  Returns (out, boundary): boundary (N, D, cols) in x's
+    dtype is A at the sweep's last step, the row the next shard is seeded
+    with.  A CUDA tensor launches the kernel; a CPU tensor runs the plain
+    version.
+    """
+    if x.dtype not in _DTYPES and x.is_cuda:
+        raise TypeError(f"seeded sga kernel takes float32 or bfloat16, got {x.dtype}")
+    cols, w_offset, w_nstride, wd = _window(x, w, direction, col0, cols)
+    valid = bool(valid) and seed is not None
+    _row(seed if valid else None, x, cols, x.dtype, "seed")
+    if out is None:
+        out = torch.empty_like(x)
+    elif out.shape != x.shape or out.dtype != x.dtype or not out.is_contiguous():
+        raise ValueError("out must match x")
+    N, D, H, W = x.shape
+    if not x.is_cuda:
+        win = slice(col0, col0 + cols)
+        a = sga_sweep_plain(x[..., win], wd[..., win], "h", reverse, seed, valid).to(x.dtype)
+        out[..., win] = a
+        return out, a[:, :, 0 if reverse else -1].contiguous()
+    lib = _fwd_seeded_lib()
+    if D > lib.sga_sweep_fwd_seeded_max_d():
+        raise ValueError(f"seeded sga kernel takes D <= {lib.sga_sweep_fwd_seeded_max_d()}, got {D}")
+    boundary = torch.empty((N, D, cols), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = lib.sga_sweep_fwd_seeded(
+            x.data_ptr(),
+            w.data_ptr() + w_offset * w.element_size(),
+            seed.data_ptr() if valid else None,
+            out.data_ptr(),
+            boundary.data_ptr(),
+            N, D, H, W, col0, cols, int(reverse), int(valid),
+            w_nstride, _DTYPES[x.dtype], stream,
+        )
+    sga_sweep_seeded_kernel.launches += 1
+    _build.check(status, "sga_sweep_fwd_seeded")
+    return out, boundary
+
+
+sga_sweep_seeded_kernel.launches = 0
+
+
+def _bwd_seeded_lib() -> ctypes.CDLL:
+    lib = _build.load("sga_bwd_seeded")
+    fn = lib.sga_sweep_bwd_seeded
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 8
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.sga_sweep_bwd_seeded_max_d.restype = ctypes.c_int
+        lib.sga_sweep_bwd_seeded_max_d.argtypes = []
+    return lib
+
+
+def sga_sweep_bwd_seeded_kernel(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    a: torch.Tensor,
+    gbar: torch.Tensor,
+    reverse: bool,
+    seed: torch.Tensor | None = None,
+    valid: bool = True,
+    *,
+    direction: int | None = None,
+    col0: int = 0,
+    cols: int | None = None,
+    dboundary: torch.Tensor | None = None,
+    dx: torch.Tensor | None = None,
+    dw: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of one seeded sweep along H (K6) over the columns
+    [col0, col0 + cols).
+
+    x, a (K5's output), gbar: (N, D, H, W) contiguous, one dtype; w as for
+    `sga_sweep_seeded_kernel`; seed and valid as given to the forward.
+    dboundary: (N, D, cols) float32, the cotangent of the boundary row the
+    forward sent downstream (none when None).  dx and dw (shaped as x and
+    w): the launch adds this sweep's gradient into them in the window
+    (new zero tensors when None).  Returns (dx, dw, dseed): dseed
+    (N, D, cols) float32 is the cotangent of the seed (0 when not `valid`).
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    """
+    if x.is_cuda and (x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (a, gbar))):
+        raise TypeError(f"seeded sga bwd kernel takes float32 or bfloat16, got {x.dtype}/{a.dtype}/{gbar.dtype}")
+    cols, w_offset, w_nstride, wd = _window(x, w, direction, col0, cols)
+    if a.shape != x.shape or gbar.shape != x.shape or not a.is_contiguous() or not gbar.is_contiguous():
+        raise ValueError(f"a {tuple(a.shape)} and gbar {tuple(gbar.shape)} must be contiguous as x {tuple(x.shape)}")
+    if any(t.device != x.device for t in (a, gbar)):
+        raise ValueError("all inputs must be on one device")
+    valid = bool(valid) and seed is not None
+    _row(seed if valid else None, x, cols, x.dtype, "seed")
+    _row(dboundary, x, cols, torch.promote_types(x.dtype, torch.float32), "dboundary")
+    if dx is None:
+        dx = torch.zeros_like(x)
+    elif dx.shape != x.shape or dx.dtype != x.dtype or not dx.is_contiguous():
+        raise ValueError("dx must match x")
+    if dw is None:
+        dw = torch.zeros_like(w)
+    elif dw.shape != w.shape or dw.dtype != w.dtype or not dw.is_contiguous():
+        raise ValueError("dw must match w")
+    N, D, H, W = x.shape
+    if not x.is_cuda:
+        win = slice(col0, col0 + cols)
+        dxk, dwk, dseed = sga_sweep_bwd_plain(
+            x[..., win], wd[..., win], a[..., win], gbar[..., win], "h", reverse,
+            seed if seed is not None else torch.zeros((N, D, cols), dtype=x.dtype),
+            valid, dboundary,
+        )
+        dx[..., win] += dxk
+        (dw if direction is None else dw[:, direction])[..., win] += dwk
+        return dx, dw, dseed
+    lib = _bwd_seeded_lib()
+    if D > lib.sga_sweep_bwd_seeded_max_d():
+        raise ValueError(f"seeded sga bwd kernel takes D <= {lib.sga_sweep_bwd_seeded_max_d()}, got {D}")
+    dseed = torch.empty((N, D, cols), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = lib.sga_sweep_bwd_seeded(
+            x.data_ptr(),
+            w.data_ptr() + w_offset * w.element_size(),
+            a.data_ptr(),
+            seed.data_ptr() if valid else None,
+            gbar.data_ptr(),
+            dboundary.data_ptr() if dboundary is not None else None,
+            dx.data_ptr(),
+            dw.data_ptr() + w_offset * dw.element_size(),
+            dseed.data_ptr(),
+            N, D, H, W, col0, cols, int(reverse), int(valid),
+            w_nstride, _DTYPES[x.dtype], stream,
+        )
+    sga_sweep_bwd_seeded_kernel.launches += 1
+    _build.check(status, "sga_sweep_bwd_seeded")
+    return dx, dw, dseed
+
+
+sga_sweep_bwd_seeded_kernel.launches = 0
+
+
+class SeededSweep(torch.autograd.Function):
+    """One seeded sweep along H with its gradient: x (N, D, H, W),
+    w (N, 5, H, W), seed (N, D, W) -> A.  Forward K5, backward K6 (with
+    dseed) on CUDA tensors; their plain versions on CPU tensors.  `valid`
+    is a Python bool: False runs the copy-x first step (no upstream shard)."""
+
+    @staticmethod
+    def forward(ctx, x, w, seed, reverse: bool, valid: bool):
+        out, _ = sga_sweep_seeded_kernel(x, w, reverse, seed, valid)
+        ctx.reverse, ctx.valid = reverse, valid
+        ctx.save_for_backward(x, w, out, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, seed = ctx.saved_tensors
+        dx, dw, dseed = sga_sweep_bwd_seeded_kernel(
+            x, w, a, g.contiguous(), ctx.reverse, seed, ctx.valid
+        )
+        return dx, dw, None if seed is None else dseed.to(seed.dtype), None, None
 
 
 class SGAFunction(torch.autograd.Function):

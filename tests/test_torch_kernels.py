@@ -221,3 +221,77 @@ def test_eval_route_fuses_in_place(cuda):
     assert S.sga_sweep_kernel.launches == fwd + 4
     assert S.sga_sweep_bwd_kernel.launches == bwd
     assert torch.cuda.max_memory_allocated() - before <= out.numel() * out.element_size() + 4096
+
+
+# (N, D, H, W, col0, cols): ragged windows inside wider rows.
+SEEDED_SHAPES = [(2, 4, 6, 10, 3, 5), (3, 13, 9, 70, 0, 37), (1, 100, 5, 40, 8, 32)]
+
+
+@pytest.mark.parametrize("shape", SEEDED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seeded_sweep_kernels(cuda, shape, dtype):
+    """K5 and K6 against their plain versions on a column window, seeded
+    and not, forward and reverse; dx and dw are added into."""
+    N, D, H, W, col0, cols = shape
+    win = slice(col0, col0 + cols)
+    x = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+    w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda), dim=2).to(dtype)
+    seed = torch.randn((N, D, cols), device="cuda", generator=cuda).to(dtype)
+    gbar = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+    dbound = torch.randn((N, D, cols), device="cuda", generator=cuda)
+    for direction, reverse in ((2, False), (3, True)):
+        for valid in (True, False):
+            out, bnd = S.sga_sweep_seeded_kernel(
+                x, w, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
+                out=torch.zeros_like(x))
+            ref = S.sga_sweep_plain(x[..., win], w[:, direction, ..., win], "h", reverse, seed, valid).to(dtype)
+            _close(out[..., win].contiguous(), ref)
+            _close(bnd, ref[:, :, 0 if reverse else -1].contiguous())
+            assert not out[..., :col0].any() and not out[..., col0 + cols:].any()
+            dx, dw, dseed = S.sga_sweep_bwd_seeded_kernel(
+                x, w, out, gbar, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
+                dboundary=dbound)
+            rdx, rdw, rds = S.sga_sweep_bwd_plain(
+                x[..., win], w[:, direction, ..., win], out[..., win], gbar[..., win], "h", reverse,
+                seed, valid, dbound)
+            _close(dx[..., win].contiguous(), rdx, summed=True)
+            _close(dw[:, direction, ..., win].contiguous(), rdw, summed=True)
+            _close(dseed, rds.float(), summed=True)
+            assert not dx[..., :col0].any() and not dw[:, [0, 1, 5 - direction]].any()
+
+
+def test_seeded_launch_counts(cuda):
+    x = torch.randn((2, 4, 6, 10), device="cuda", generator=cuda)
+    w = l1_normalize(torch.randn((2, 5, 6, 10), device="cuda", generator=cuda), dim=1)
+    S.sga_sweep_seeded_kernel.launches = S.sga_sweep_bwd_seeded_kernel.launches = 0
+    a, _ = S.sga_sweep_seeded_kernel(x, w, False)
+    S.sga_sweep_bwd_seeded_kernel(x, w, a, torch.ones_like(x), False)
+    assert (S.sga_sweep_seeded_kernel.launches, S.sga_sweep_bwd_seeded_kernel.launches) == (1, 1)
+    # The plain versions, on CPU tensors, are not counted.
+    S.sga_sweep_seeded_kernel(x.cpu(), w.cpu(), False)
+    assert S.sga_sweep_seeded_kernel.launches == 1
+
+
+def test_sharded_path_on_one_card(cuda, tmp_path):
+    """Sharded SGA (K1, K5 / K3, K6) and LGA (K2 / K4) on 2 ranks that share
+    the card over gloo, against the unsharded kernels."""
+    from ganet_tpu_torch.parallel import cases as K
+    from ganet_tpu_torch.parallel.launch import launch
+
+    cases = [
+        dict(name="sga", op="sga", shape=(1, 2, 8, 12, 40), seed=0, chunks=3, grad=True),
+        dict(name="lga", op="lga", shape=(1, 8, 12, 20), seed=1, repeats=2, grad=True),
+    ]
+    launch(K.run_cases, 2, (cases, str(tmp_path), "cuda"), backend="gloo", device="cuda")
+    for case in cases:
+        res = K.gather(case, str(tmp_path), 2)
+        inp = {k: torch.from_numpy(v).cuda() for k, v in K.make_inputs(case).items()}
+        x = inp["x"].requires_grad_()
+        other = inp["w" if case["op"] == "sga" else "g"].requires_grad_()
+        ref = S.sga_ncdhw(x, other) if case["op"] == "sga" else G.lga_nchw(x, other, 2, 2)
+        ref.backward(inp["gbar"])
+        _close(res["out"].cuda(), ref.detach())
+        _close(res["dx"].cuda(), x.grad, summed=True)
+        _close(res["dw" if case["op"] == "sga" else "dg"].cuda(), other.grad, summed=True)
+        if case["op"] == "sga":
+            assert all(c["sga_fwd_seeded"] == 6 and c["sga_bwd_seeded"] == 6 for c in res["launches"])
