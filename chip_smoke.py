@@ -38,7 +38,12 @@ CUDA toolkit.  Phases, each printing its lines:
      forward and gradients at GANet_deep's full widths against the
      unsharded kernels in this process; launch counts of K1, K3, K5, K6 on
      every rank, and wall times per rank (4 ranks on one card: not a
-     multi-GPU time).
+     multi-GPU time);
+ 13. the channel-wise LGA (`lga3d`) path: its forward kernel (K7) at one
+     channel per guidance against its plain version and against K2 at the
+     eval head; `lga3d` forward at GANet_deep's full-res aggregation volume
+     and forward and backward (K7, K4) at the training crop's, against the
+     plain versions, with the launches of each run counted.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -188,6 +193,16 @@ def phase_sga(torch, gen):
     return entry
 
 
+def lga_bound(numel: int, n_guidance: int, elem: int):
+    """(bound ms, "bytes" or "operations", bytes, FLOP) of one LGA pass over
+    `numel` outputs: x read and out written once, the guidance read once,
+    75 FMAs an output."""
+    nbytes = (2 * numel + n_guidance) * elem
+    flops = 2 * 75 * numel
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
 def phase_lga(torch, gen):
     """K2 at the head's shape; returns the JSON entry (one bf16 pass)."""
     from ganet_tpu_torch.ops import lga as G
@@ -208,11 +223,7 @@ def phase_lga(torch, gen):
             del got, ref
         ms = cuda_ms(torch, lambda: G.lga_kernel(x, g, r), reps=10)
         plain_ms = cuda_ms(torch, lambda: G.lga_reference_nchw(x, g, r, 1), reps=2)
-        numel = x.numel()
-        nbytes = (2 * numel + g.numel()) * x.element_size()
-        flops = 2 * 75 * numel
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
+        bound_ms, by, nbytes, flops = lga_bound(x.numel(), g.numel(), x.element_size())
         log(f"  {tag}: kernel {ms:.3f} ms per pass, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         if dtype == torch.bfloat16:
@@ -273,8 +284,8 @@ def phase_main_path(torch, gen, smi, entries):
     torch.cuda.synchronize()
     launches = read_counts(S, G)
     log(f"[5] launches in one forward: {launches}")
-    if any(launches[k] for k in ("sga_bwd", "lga_bwd", "sga_fwd_seeded", "sga_bwd_seeded")):
-        raise AssertionError("the eval forward launched a gradient or a seeded kernel")
+    if any(launches[k] for k in ("sga_bwd", "lga_bwd", "sga_fwd_seeded", "sga_bwd_seeded", "lga3d_fwd")):
+        raise AssertionError("the eval forward launched a gradient, seeded or lga3d kernel")
     n_sga = 4 * (cfg.num_sga_full + cfg.num_sga_half)
     n_lga = 2 * cfg.lga_repeats
     if tuple(disp.shape) != (1, H, W):
@@ -306,7 +317,7 @@ def phase_main_path(torch, gen, smi, entries):
 def reset_counts(S, G) -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in (S.sga_sweep_kernel, G.lga_kernel, S.sga_sweep_bwd_kernel, G.lga_bwd_kernel,
-               S.sga_sweep_seeded_kernel, S.sga_sweep_bwd_seeded_kernel):
+               S.sga_sweep_seeded_kernel, S.sga_sweep_bwd_seeded_kernel, G.lga3d_kernel):
         fn.launches = 0
 
 
@@ -316,6 +327,7 @@ def read_counts(S, G) -> dict:
         "sga_bwd": S.sga_sweep_bwd_kernel.launches, "lga_bwd": G.lga_bwd_kernel.launches,
         "sga_fwd_seeded": S.sga_sweep_seeded_kernel.launches,
         "sga_bwd_seeded": S.sga_sweep_bwd_seeded_kernel.launches,
+        "lga3d_fwd": G.lga3d_kernel.launches,
     }
 
 
@@ -325,6 +337,7 @@ KERNEL_GROUPS = (
     ("lga_fwd (K2)", ("lga_fwd_kernel",)),
     ("sga_bwd (K3)", ("sga_bwd",)),
     ("lga_bwd (K4)", ("lga_bwd_kernel",)),
+    ("lga3d_fwd (K7)", ("lga3d_fwd_kernel",)),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass", "fprop", "dgrad", "wgrad")),
 )
 
@@ -811,7 +824,7 @@ def phase_train_path(torch, smi, entries):
     n_sga = 4 * (cfg.model.num_sga_full + cfg.model.num_sga_half)
     n_lga = 2 * cfg.model.lga_repeats
     want = {"sga_fwd": n_sga, "sga_bwd": n_sga, "lga_fwd": n_lga, "lga_bwd": n_lga,
-            "sga_fwd_seeded": 0, "sga_bwd_seeded": 0}
+            "sga_fwd_seeded": 0, "sga_bwd_seeded": 0, "lga3d_fwd": 0}
     if launches != want:
         raise AssertionError(f"expected launches {want} in one train step, got {launches}")
     for e in entries:
@@ -847,6 +860,117 @@ def phase_train_path(torch, smi, entries):
     profile_forward(torch, forward, "[9] profile of the train step's forward and loss")
     profile_forward(torch, lambda: holder.pop("loss").backward(), "[9] profile of the train step's backward")
     state.optimizer.zero_grad(set_to_none=True)
+
+
+def expect_launches(torch, S, G, tag: str, want: dict) -> dict:
+    """Read the counts after a run; every kernel not in `want` must be 0."""
+    torch.cuda.synchronize()
+    got = read_counts(S, G)
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{tag}: launched {got}, expected {full}")
+    log(f"  {tag}: launches {got}")
+    return got
+
+
+def phase_lga3d(torch, gen, smi):
+    """K7 at one channel per guidance (K2's function) at the eval head; the
+    `lga3d` path at GANet_deep's full-res volume and at the training crop's;
+    returns K7's JSON entry (one bf16 pass over the full-res volume)."""
+    from ganet_tpu_torch.ops import dispatch
+    from ganet_tpu_torch.ops import lga as G
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.ops.normalize import l1_normalize
+
+    r = 2
+    # (i) gdiv 1 at the eval head (1, 192, 576, 960): K7 against its plain version and K2.
+    x32 = torch.randn((1, 192, 576, 960), device="cuda", generator=gen)
+    g32 = l1_normalize(torch.randn((1, 75, 576, 960), device="cuda", generator=gen), dim=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = x32.to(dtype), g32.to(dtype)
+        tag = f"lga3d_fwd gdiv 1 {tuple(x.shape)} r{r} {str(dtype)[6:]}"
+        got = G.lga3d_kernel(x, g, r, 1)
+        compare(torch, f"{tag} vs plain", got, G.lga3d_fwd_plain(x, g, r, 1).to(dtype))
+        compare(torch, f"{tag} vs K2", got, G.lga_kernel(x, g, r))
+        del got
+        k7_ms = cuda_ms(torch, lambda: G.lga3d_kernel(x, g, r, 1), reps=10)
+        k2_ms = cuda_ms(torch, lambda: G.lga_kernel(x, g, r), reps=10)
+        bound_ms, by, _, _ = lga_bound(x.numel(), g.numel(), x.element_size())
+        log(f"  {tag}: K7 {k7_ms:.3f} ms, K2 {k2_ms:.3f} ms per pass, bound {bound_ms:.3f} ms ({by}); "
+            f"card {smi}")
+        del x, g
+    del x32, g32
+    torch.cuda.empty_cache()
+
+    # (ii) lga3d forward at GANet_deep's full-res aggregation volume, (B, C, D, H, W).
+    B, C, D, H, W = 1, 32, 64, 192, 320
+    x32 = torch.randn((B, C, D, H, W), device="cuda", generator=gen)
+    g32 = l1_normalize(torch.randn((B, 75, H, W), device="cuda", generator=gen), dim=1)
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = x32.to(dtype), g32.to(dtype)
+        tag = f"lga3d {tuple(x.shape)} r{r} {str(dtype)[6:]}"
+        errs, counted = {}, {}
+        for repeats in (1, 2):
+            reset_counts(S, G)
+            got = dispatch.lga3d_ncdhw(x, g, r, repeats)
+            counted[repeats] = expect_launches(torch, S, G, f"{tag} repeats {repeats}", {"lga3d_fwd": repeats})
+            ref = G.lga3d_reference_ncdhw(x, g, r, repeats)
+            errs[repeats] = compare(torch, f"{tag} repeats {repeats}", got, ref)
+            del got, ref
+        xf = x.view(B * C, D, H, W)
+        ms = cuda_ms(torch, lambda: G.lga3d_kernel(xf, g, r, C), reps=10)
+        plain_ms = cuda_ms(torch, lambda: G.lga3d_fwd_plain(xf, g, r, C), reps=1)
+        bound_ms, by, nbytes, flops = lga_bound(x.numel(), g.numel(), x.element_size())
+        log(f"  {tag}: K7 {ms:.3f} ms per pass, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); card {smi}")
+        if dtype == torch.bfloat16:
+            entry = {
+                "name": "lga3d_fwd", "route": "cuda",
+                "source": "ganet_tpu_torch/csrc/lga3d_fwd.cu",
+                "replaces": "ganet_tpu/ops/lga_pallas.py:267",
+                "launches": counted[2]["lga3d_fwd"],
+                "max_abs_err": errs[1], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            }
+        del x, g, xf
+    del x32, g32
+    torch.cuda.empty_cache()
+
+    # (iii) lga3d forward and backward at the training crop's volume, repeats 2,
+    # through the kernels (K7, K4) and through autograd of the plain forward.
+    B, C, D, H, W, repeats = 2, 32, 64, 80, 176, 2
+    x32 = torch.randn((B, C, D, H, W), device="cuda", generator=gen)
+    g32 = l1_normalize(torch.randn((B, 75, H, W), device="cuda", generator=gen), dim=1)
+    b32 = torch.randn((B, C, D, H, W), device="cuda", generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, gbar = x32.to(dtype), g32.to(dtype), b32.to(dtype)
+        tag = f"lga3d grad {tuple(x.shape)} r{r} repeats {repeats} {str(dtype)[6:]}"
+        res = {}
+        for impl in ("kernel", "torch"):
+            xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+            reset_counts(S, G)
+            out = dispatch.lga3d_ncdhw(xr, gr, r, repeats, impl=impl)
+            out.backward(gbar)
+            want = {"lga3d_fwd": repeats, "lga_bwd": repeats} if impl == "kernel" else {}
+            expect_launches(torch, S, G, f"{tag} {impl}", want)
+            res[impl] = (out.detach(), xr.grad, gr.grad)
+            del xr, gr, out
+        compare(torch, f"{tag} out", res["kernel"][0], res["torch"][0])
+        compare(torch, f"{tag} dx", res["kernel"][1], res["torch"][1], summed=True)
+        compare(torch, f"{tag} dg", res["kernel"][2], res["torch"][2], summed=True)
+        del res
+
+        def step():
+            xr, gr = x.detach().requires_grad_(), g.detach().requires_grad_()
+            dispatch.lga3d_ncdhw(xr, gr, r, repeats).backward(gbar)
+
+        ms = cuda_ms(torch, step, reps=3)
+        log(f"  {tag}: forward and backward through K7 and K4 {ms:.3f} ms; card {smi}")
+        del x, g, gbar
+    del x32, g32, b32
+    torch.cuda.empty_cache()
+    return entry
 
 
 def main() -> int:
@@ -908,6 +1032,9 @@ def main() -> int:
         log(f"[12] sharded SGA wavefront and halo LGA on {SHARDS} ranks sharing the card "
             f"({time.perf_counter() - t0:.1f} s)")
         phase_sharded(torch, smi, entries)
+    if want(13):
+        log(f"[13] K7 channel-wise LGA kernel and the lga3d path ({time.perf_counter() - t0:.1f} s)")
+        entries.append(phase_lga3d(torch, gen, smi))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

@@ -22,7 +22,9 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("sga_fwd", "lga_fwd", "sga_bwd", "lga_bwd", "sga_fwd_seeded", "sga_bwd_seeded")
+SOURCES = (
+    "sga_fwd", "lga_fwd", "sga_bwd", "lga_bwd", "sga_fwd_seeded", "sga_bwd_seeded", "lga3d_fwd",
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

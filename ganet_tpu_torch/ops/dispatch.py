@@ -1,4 +1,4 @@
-"""Implementation dispatch for SGA and LGA (counterpart of
+"""Implementation dispatch for SGA, LGA and channel-wise LGA (counterpart of
 `ganet_tpu/ops/dispatch.py`, without the mesh routing).
 
 `impl` is "auto" (the kernel for CUDA tensors, the plain version for CPU
@@ -8,8 +8,9 @@ otherwise launches the kernel or raises).
 
 Every route is differentiable.  "kernel" (and "auto" on CUDA) goes through
 the wrappers' autograd Functions where a gradient is wanted, whose
-backward launches the gradient kernels (K3 for SGA, K4 for LGA); "torch"
-is autograd through the plain forward.
+backward launches the gradient kernels (K3 for SGA, K4 for LGA and
+`lga3d`); "torch" is autograd through the plain forward.  The forward
+kernels are K1 (SGA), K2 (LGA) and K7 (`lga3d`).
 """
 
 from __future__ import annotations
@@ -70,3 +71,31 @@ def lga(
 ) -> torch.Tensor:
     """LGA on the JAX package's layout: x (B, D, H, W), g (B, H, W, 3*K*K)."""
     return lga_nchw(x, g.permute(0, 3, 1, 2).contiguous(), radius, repeats, impl)
+
+
+def lga3d_ncdhw(
+    x: torch.Tensor,
+    g75: torch.Tensor,
+    radius: int = 2,
+    repeats: int = 1,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Channel-wise LGA: x (B, C, D, H, W), guidance (B, 3*K*K, H, W) shared
+    by the C channels."""
+    if resolve_impl(impl, x) == "kernel":
+        return _lga.lga3d_ncdhw(x, g75, radius, repeats)
+    return _lga.lga3d_reference_ncdhw(x, g75, radius, repeats)
+
+
+def lga3d(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    radius: int = 2,
+    repeats: int = 1,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Channel-wise LGA on the JAX package's layout: x (B, D, H, W, C),
+    g (B, H, W, 3*K*K) (the reference's Lga3dFunction)."""
+    if resolve_impl(impl, x) == "kernel":
+        return _lga.lga3d(x, g, radius, repeats)
+    return _lga.lga3d_reference(x, g, radius, repeats)

@@ -18,6 +18,13 @@ Gradients.  Where a gradient is wanted, each pass runs `LGAFunction`, whose
 backward is K4 (`csrc/lga_bwd.cu`) on CUDA tensors and its plain version
 `lga_bwd_plain` on CPU tensors: dx is the transposed stencil and dg sums
 over D in float32 before it is rounded to the guidance dtype.
+
+Channel-wise LGA (`lga3d`, the reference's Lga3dFunction): the same stencil
+on every channel of a (B, C, D, H, W) volume, with the guidance shared by
+the C channels.  The channels fold into the batch, (B*C, D, H, W), and fold
+index n reads guidance n // C.  Its forward is K7 (`csrc/lga3d_fwd.cu`),
+which reads each guidance tile once for all the channels it walks; its
+backward is K4 on the fold with the guidance repeated, dg summed over C.
 """
 
 from __future__ import annotations
@@ -237,3 +244,141 @@ def lga_nchw(
     for _ in range(repeats):
         x = lga_kernel(x, g75, radius)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Channel-wise LGA (lga3d): CUDA kernel K7 (csrc/lga3d_fwd.cu) on the fold
+# ---------------------------------------------------------------------------
+
+
+def lga3d_fwd_plain(
+    x: torch.Tensor, g75: torch.Tensor, radius: int, gdiv: int
+) -> torch.Tensor:
+    """Plain version of `lga3d_kernel`, one pass over the fold: x
+    (N, D, H, W), g75 (N // gdiv, 3*K*K, H, W), fold index n reading
+    guidance n // gdiv -> float32."""
+    return _lga_once_plain(x, g75.repeat_interleave(gdiv, 0), radius)
+
+
+def lga3d_reference_ncdhw(
+    x: torch.Tensor, g75: torch.Tensor, radius: int = 2, repeats: int = 1
+) -> torch.Tensor:
+    """Plain channel-wise LGA: x (B, C, D, H, W), g75 (B, 3*K*K, H, W)."""
+    B, C, D, H, W = x.shape
+    xf = x.reshape(B * C, D, H, W)
+    for _ in range(repeats):
+        xf = lga3d_fwd_plain(xf, g75, radius, C).to(x.dtype)
+    return xf.reshape(B, C, D, H, W)
+
+
+def lga3d_reference(
+    x: torch.Tensor, g: torch.Tensor, radius: int = 2, repeats: int = 1
+) -> torch.Tensor:
+    """Plain channel-wise LGA on the JAX package's layout: x (B, D, H, W, C),
+    g (B, H, W, 3*K*K)."""
+    out = lga3d_reference_ncdhw(x.permute(0, 4, 1, 2, 3), g.permute(0, 3, 1, 2), radius, repeats)
+    return out.permute(0, 2, 3, 4, 1)
+
+
+def _lga3d_lib() -> ctypes.CDLL:
+    lib = _build.load("lga3d_fwd")
+    fn = lib.lga3d_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return lib
+
+
+def lga3d_kernel(x: torch.Tensor, g75: torch.Tensor, radius: int, gdiv: int) -> torch.Tensor:
+    """One launch of K7 (one pass) on CUDA tensors: x (N, D, H, W), 4-byte
+    aligned, and g75 (N // gdiv, 3*K*K, H, W), contiguous, both float32 or
+    both bfloat16; fold index n reads guidance n // gdiv."""
+    if not x.is_cuda:
+        raise ValueError(f"lga3d_kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES or g75.dtype != x.dtype:
+        raise TypeError(f"lga3d kernel takes float32 or bfloat16, got {x.dtype}/{g75.dtype}")
+    if radius not in (1, 2):
+        raise ValueError(f"lga3d kernel takes radius 1 or 2, got {radius}")
+    if x.dim() != 4 or not x.is_contiguous() or not g75.is_contiguous():
+        raise ValueError("lga3d kernel takes a contiguous (N, D, H, W) volume and guidance")
+    if x.data_ptr() % 4:
+        raise ValueError("lga3d kernel takes a volume whose storage is 4-byte aligned")
+    N, D, H, W = x.shape
+    K = 2 * radius + 1
+    if gdiv < 1 or N % gdiv:
+        raise ValueError(f"gdiv {gdiv} does not divide the fold's {N} indices")
+    if tuple(g75.shape) != (N // gdiv, 3 * K * K, H, W) or g75.device != x.device:
+        raise ValueError(f"guidance {tuple(g75.shape)} does not match x {tuple(x.shape)} / {gdiv}")
+    lib = _lga3d_lib()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = lib.lga3d_fwd(
+            x.data_ptr(), g75.data_ptr(), out.data_ptr(),
+            N, D, H, W, gdiv, radius, _DTYPES[x.dtype], stream,
+        )
+    lga3d_kernel.launches += 1
+    _build.check(status, "lga3d_fwd")
+    return out
+
+
+lga3d_kernel.launches = 0
+
+
+class LGA3dFunction(torch.autograd.Function):
+    """One channel-wise LGA pass over the fold with its gradient; residuals
+    (x, g75).  CUDA tensors launch K7 forward and K4 backward, CPU tensors
+    run their plain versions.  The backward repeats the guidance over the
+    fold and sums dg over the `gdiv` channels of each guidance index (the
+    transpose of the repeat), as JAX's `lga3d` does."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, g75: torch.Tensor, radius: int, gdiv: int) -> torch.Tensor:
+        ctx.radius, ctx.gdiv = radius, gdiv
+        ctx.save_for_backward(x, g75)
+        if x.is_cuda:
+            return lga3d_kernel(x, g75, radius, gdiv)
+        return lga3d_fwd_plain(x, g75, radius, gdiv).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, g75 = ctx.saved_tensors
+        g = g.contiguous()
+        gf = g75.repeat_interleave(ctx.gdiv, 0)
+        if x.is_cuda:
+            dx, dgf = lga_bwd_kernel(x, gf, g, ctx.radius)
+        else:
+            dx, dgf = lga_bwd_plain(x, gf, g, ctx.radius)
+        dg = dgf.view(g75.shape[0], ctx.gdiv, *g75.shape[1:]).sum(1)
+        return dx, dg, None, None
+
+
+def lga3d_ncdhw(
+    x: torch.Tensor, g75: torch.Tensor, radius: int = 2, repeats: int = 1
+) -> torch.Tensor:
+    """Channel-wise LGA: x (B, C, D, H, W), g75 (B, 3*K*K, H, W).  The
+    channels fold into the batch (a view of a contiguous x).  Where a
+    gradient is wanted: one `LGA3dFunction` per pass.  Otherwise one K7
+    launch per pass on a CUDA tensor, the plain version on a CPU tensor.
+    Each pass rounds to x's dtype."""
+    B, C, D, H, W = x.shape
+    xf = x.contiguous().view(B * C, D, H, W)
+    g75 = g75.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or g75.requires_grad):
+        for _ in range(repeats):
+            xf = LGA3dFunction.apply(xf, g75, radius, C)
+    elif x.device.type == "cpu":
+        return lga3d_reference_ncdhw(x, g75, radius, repeats)
+    else:
+        for _ in range(repeats):
+            xf = lga3d_kernel(xf, g75, radius, C)
+    return xf.view(B, C, D, H, W)
+
+
+def lga3d(
+    x: torch.Tensor, g: torch.Tensor, radius: int = 2, repeats: int = 1
+) -> torch.Tensor:
+    """`lga3d_ncdhw` on the JAX package's layout: x (B, D, H, W, C),
+    g (B, H, W, 3*K*K) -> (B, D, H, W, C)."""
+    out = lga3d_ncdhw(x.permute(0, 4, 1, 2, 3), g.permute(0, 3, 1, 2), radius, repeats)
+    return out.permute(0, 2, 3, 4, 1)

@@ -272,6 +272,89 @@ def test_seeded_launch_counts(cuda):
     assert S.sga_sweep_seeded_kernel.launches == 1
 
 
+@pytest.mark.parametrize("C", [1, 2, 5])
+@pytest.mark.parametrize("D", [1, 2, 7])
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga3d_kernel(cuda, C, D, radius, dtype):
+    """K7 on a fold of B*C indices, C reading each guidance: ragged 8x32
+    tiles, D = 1 and 2 at the ends of the slice ring, and an odd W and H*W,
+    which move bf16 rows off 4-byte boundaries from row to row and slice to
+    slice."""
+    B, H, W = 2, 19, 45
+    K = 2 * radius + 1
+    x = torch.randn((B * C, D, H, W), device="cuda", generator=cuda).to(dtype)
+    g = l1_normalize(torch.randn((B, 3 * K * K, H, W), device="cuda", generator=cuda), dim=1).to(dtype)
+    _close(G.lga3d_kernel(x, g, radius, C), G.lga3d_fwd_plain(x, g, radius, C).to(dtype))
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga3d_kernel_walks_channels(cuda, D, dtype):
+    """At this size the launch gives each block several channels, so a
+    block's walk crosses from slice D-1 of one channel to slice 0 of the
+    next; channels of very different scales must each equal K2 on their
+    own."""
+    C, H, W = 5, 203, 331
+    scales = torch.tensor([1e4, 1e-3, 1.0, 1e2, 3.0], device="cuda").view(C, 1, 1, 1)
+    x = (torch.randn((C, D, H, W), device="cuda", generator=cuda) * scales).to(dtype)
+    g = l1_normalize(torch.randn((1, 75, H, W), device="cuda", generator=cuda), dim=1).to(dtype)
+    got = G.lga3d_kernel(x, g, 2, C)
+    for c in range(C):
+        _close(got[c : c + 1], G.lga_kernel(x[c : c + 1].contiguous(), g, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga3d_kernel_at_gdiv_1_is_k2(cuda, dtype):
+    x = torch.randn((2, 11, 19, 45), device="cuda", generator=cuda).to(dtype)
+    g = l1_normalize(torch.randn((2, 75, 19, 45), device="cuda", generator=cuda), dim=1).to(dtype)
+    _close(G.lga3d_kernel(x, g, 2, 1), G.lga_kernel(x, g, 2))
+
+
+def test_lga3d_gradient_through_dispatch(cuda):
+    """`dispatch.lga3d_ncdhw` on CUDA: K7 forward and K4 backward, one each
+    per pass and no K2, with the gradient of autograd through the plain
+    forward."""
+    from ganet_tpu_torch.ops import dispatch
+
+    x = torch.randn((2, 3, 7, 12, 40), device="cuda", generator=cuda)
+    g = l1_normalize(torch.randn((2, 75, 12, 40), device="cuda", generator=cuda), dim=1)
+    gout = torch.randn(x.shape, device="cuda", generator=cuda)
+    grads = {}
+    for impl in ("auto", "torch"):
+        counts = (G.lga3d_kernel.launches, G.lga_bwd_kernel.launches, G.lga_kernel.launches)
+        xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+        out = dispatch.lga3d_ncdhw(xr, gr, 2, 2, impl=impl)
+        out.backward(gout)
+        grads[impl] = (out.detach(), xr.grad, gr.grad)
+        now = (G.lga3d_kernel.launches, G.lga_bwd_kernel.launches, G.lga_kernel.launches)
+        assert tuple(b - a for a, b in zip(counts, now)) == ((2, 2, 0) if impl == "auto" else (0, 0, 0))
+    _close(grads["auto"][0], grads["torch"][0])
+    for got, want in zip(grads["auto"][1:], grads["torch"][1:]):
+        assert got.abs().max() > 0
+        _close(got, want, summed=True)
+
+
+def test_lga3d_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn((4, 3, 6, 8), device="cuda")
+    g = torch.randn((2, 75, 6, 8), device="cuda")
+    with pytest.raises(TypeError):
+        G.lga3d_kernel(x.half(), g.half(), 2, 2)
+    with pytest.raises(TypeError):
+        G.lga3d_kernel(x, g.bfloat16(), 2, 2)
+    with pytest.raises(ValueError):
+        G.lga3d_kernel(x, g, 3, 2)
+    with pytest.raises(ValueError):
+        G.lga3d_kernel(x, g, 2, 3)  # 3 does not divide 4
+    with pytest.raises(ValueError):
+        G.lga3d_kernel(x, g[:, :27], 2, 2)
+    with pytest.raises(ValueError):
+        G.lga3d_kernel(x.transpose(2, 3), g, 2, 2)
+    odd = torch.randn(x.numel() + 1, device="cuda").bfloat16()[1:].view(x.shape)
+    with pytest.raises(ValueError):
+        G.lga3d_kernel(odd, g.bfloat16(), 2, 2)
+
+
 def test_sharded_path_on_one_card(cuda, tmp_path):
     """Sharded SGA (K1, K5 / K3, K6) and LGA (K2 / K4) on 2 ranks that share
     the card over gloo, against the unsharded kernels."""
