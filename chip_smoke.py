@@ -10,6 +10,10 @@ CUDA toolkit.  Phases, each printing its lines:
      CUDA kernel from `ganet_tpu_torch/csrc/`, one nvcc per source at once;
   2. the SGA sweep kernel (K1) against its plain PyTorch version at the
      eval path's shapes, per direction and fused, in float32 and bfloat16;
+     per launch, storing and accumulating, its time beside its own traffic
+     floor, the staging path it took (vectorised at every shape of the
+     model's paths, the training path's included), its registers, shared
+     memory and local memory (no spills);
   3. the LGA kernel (K2) likewise, radius 2, repeats 1 and 2;
   4. the whole model at 240x528, D=192, float32 with TF32 off, once through
      the kernels and once through the plain versions, from one seeded init;
@@ -38,7 +42,9 @@ CUDA toolkit.  Phases, each printing its lines:
      forward and gradients at GANet_deep's full widths against the
      unsharded kernels in this process; launch counts of K1, K3, K5, K6 on
      every rank, and wall times per rank (4 ranks on one card: not a
-     multi-GPU time);
+     multi-GPU time); where the f32 SGA gradients part (K1 against K5 on
+     the H sweeps: difference, argmax flips, and the unsharded gradient on
+     K5's sweeps against the sharded one);
  13. the channel-wise LGA (`lga3d`) path: its forward kernel (K7) at one
      channel per guidance against its plain version and against K2 at the
      eval head; `lga3d` forward at GANet_deep's full-res aggregation volume
@@ -143,6 +149,37 @@ def phase_card(torch):
     return smi
 
 
+def sga_describe(torch, x, w, axis: str, direction: int, accumulate: bool) -> dict:
+    """What K1 launches for these tensors, from `sga_sweep_fwd_describe` in
+    its library: staging path, registers, shared memory, local memory
+    (spills) and geometry."""
+    import ctypes
+
+    from ganet_tpu_torch.ops import _build
+
+    fn = _build.load("sga_fwd").sga_sweep_fwd_describe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                                                 ctypes.c_void_p]
+    N, D, H, W = x.shape
+    info = (ctypes.c_int * 10)()
+    status = fn(x.data_ptr(), w.data_ptr() + direction * 5 * H * W * w.element_size(), x.data_ptr(),
+                N, D, H, W, int(axis == "w"), int(accumulate), 20 * H * W,
+                {torch.float32: 0, torch.bfloat16: 1}[x.dtype], ctypes.addressof(info))
+    _build.check(status, "sga_sweep_fwd_describe")
+    keys = ("vectorised", "registers", "shared_bytes", "local_bytes", "lanes", "bins", "steps",
+            "stages", "warps", "blocks")
+    return dict(zip(keys, info))
+
+
+def sga_launch_floor_ms(x, accumulate: bool) -> float:
+    """The traffic floor of one K1 launch: x, 5 weight planes and the output
+    (read first when accumulating) moved once, over the HBM rate."""
+    N, D, H, W = x.shape
+    nbytes = ((2 + accumulate) * x.numel() + 5 * N * H * W) * x.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def phase_sga(torch, gen):
     """K1 at the main path's shapes; returns the JSON entry (full-res bf16)."""
     from ganet_tpu_torch.ops import sga as S
@@ -164,7 +201,23 @@ def phase_sga(torch, gen):
                 sweep_ms = cuda_ms(
                     torch, lambda: S.sga_sweep_kernel(x, w, axis, reverse, direction=direction), reps=3
                 )
-                log(f"    one launch: {sweep_ms:.3f} ms")
+                acc = torch.zeros_like(x)
+                acc_ms = cuda_ms(
+                    torch, lambda: S.sga_sweep_kernel(x, w, axis, reverse, direction=direction, out=acc),
+                    reps=3,
+                )
+                del acc
+                for accumulate, ms in ((False, sweep_ms), (True, acc_ms)):
+                    info = sga_describe(torch, x, w, axis, direction, accumulate)
+                    log(f"    one launch {'accumulating' if accumulate else 'storing'}: {ms:.3f} ms, "
+                        f"launch floor {sga_launch_floor_ms(x, accumulate):.4f} ms; "
+                        f"{'vectorised' if info['vectorised'] else 'element-wise'} staging, "
+                        f"{info['registers']} registers, {info['shared_bytes']} B shared a block, "
+                        f"{info['local_bytes']} B local; {info['lanes']} lanes x {info['bins']} bins a "
+                        f"column, {info['steps']} steps x {info['stages']} stages, {info['warps']} "
+                        f"warps a block, {info['blocks']} blocks")
+                    if not info["vectorised"] or info["local_bytes"]:
+                        raise AssertionError(f"{tag}: K1 staged element-wise or spilled: {info}")
             x5 = x.view(B, C, D, H, W)
             w5 = w.view(B, C, 4, 5, H, W)
             got = S.sga_ncdhw(x5, w5)
@@ -178,8 +231,11 @@ def phase_sga(torch, gen):
             flops = 4 * 10 * numel + 3 * numel  # 5 mul + 4 add + max per sweep, 3 max to fuse
             bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
+            # The 4 launches' own floor: one storing, three accumulating.
+            floor_ms = sga_launch_floor_ms(x, False) + 3 * sga_launch_floor_ms(x, True)
             log(f"  {tag}: kernel {ms:.3f} ms (4 launches), plain {plain_ms:.3f} ms, "
-                f"bound {bound_ms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                f"bound {bound_ms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+                f"floor of the 4 launches {floor_ms:.3f} ms")
             if label == "full" and dtype == torch.bfloat16:
                 entry = {
                     "name": "sga_fwd", "route": "cuda",
@@ -190,6 +246,17 @@ def phase_sga(torch, gen):
                 }
             del x, w, x5, w5
         del x32, w32
+    # The training path's blocks (240x528, batch 2): the staging K1 takes there.
+    for N, D, H, W in ((64, 64, 80, 176), (96, 32, 40, 88)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.empty((N, D, H, W), device="cuda", dtype=dtype)
+            w = torch.empty((N, 4, 5, H, W), device="cuda", dtype=dtype)
+            for direction, (axis, _) in enumerate(S.DIRECTIONS):
+                info = sga_describe(torch, x, w, axis, direction, direction > 0)
+                if not info["vectorised"] or info["local_bytes"]:
+                    raise AssertionError(f"K1 at {(N, D, H, W)} {dtype}: element-wise or spilled: {info}")
+            log(f"  sga training block {(N, D, H, W)} {str(dtype)[6:]}: vectorised staging in all 4 directions")
+            del x, w
     return entry
 
 
@@ -644,6 +711,45 @@ def norm_rel(torch, got, ref) -> float:
     return ((got.double() - ref.double()).norm() / ref.double().norm().clamp_min(1e-30)).item()
 
 
+def sharded_grad_gap(torch, tag, x, w, gbar, res) -> None:
+    """Where the f32 sharded gradients part from the unsharded ones.  The
+    sharded path runs its H sweeps by K5 (its carry crosses the shard
+    borders in f32), the unsharded path by K1.  Measures K1's H sweeps
+    against K5's, unseeded over the whole volume: their difference, the
+    (n, h, w) steps whose argmax over d differs (the cell the w4 term's
+    gradient goes to) and the elements where the max over the 4 directions
+    picks another sweep; then holds the unsharded gradient, with K5's H
+    sweeps as its residuals in place of K1's, against the sharded one."""
+    from ganet_tpu_torch.ops import sga as S
+
+    B, C, D, H, W = x.shape
+    xn, wn = x.reshape(B * C, D, H, W), w.reshape(B * C, 4, 5, H, W)
+    a1 = [S.sga_sweep_kernel(xn, wn, axis, rev, direction=k) for k, (axis, rev) in enumerate(S.DIRECTIONS)]
+    a5 = a1[:2] + [S.sga_sweep_seeded_kernel(xn, wn, rev, direction=k)[0]
+                   for k, (axis, rev) in enumerate(S.DIRECTIONS) if axis == "h"]
+    for k in (2, 3):
+        diff = (a1[k] - a5[k]).abs()
+        flips = int((a1[k].argmax(1) != a5[k].argmax(1)).sum())
+        log(f"  {tag}: H sweep {k}, K1 vs K5 (f32): max |diff| {diff.max().item():.3e} over "
+            f"max|A| {a1[k].abs().max().item():.3e}, {int((diff > 0).sum())} of {diff.numel()} "
+            f"elements differ; argmax over d differs at {flips} of {diff.numel() // D} steps")
+        del diff
+    routes = int((torch.stack(a1).argmax(0) != torch.stack(a5).argmax(0)).sum())
+    log(f"  {tag}: the max over the 4 directions picks another sweep at {routes} of {xn.numel()} elements")
+    del a1
+    gs = S.max_tree_bwd(a5, gbar.reshape(xn.shape).contiguous())
+    dx, dw = None, torch.empty_like(wn)
+    for k, (axis, rev) in enumerate(S.DIRECTIONS):
+        dx, _ = S.sga_sweep_bwd_kernel(xn, wn, a5[k], gs[k], axis, rev, direction=k, dx=dx, dw=dw)
+    for name, got in (("dx", dx), ("dw", dw)):
+        e = norm_rel(torch, res[name].cuda().reshape(got.shape), got)
+        ok = e <= SHARDED_GRAD_TOL
+        log(f"  {tag}: {name} norm-relative {e:.3e} against the unsharded gradient with K5's H "
+            f"sweeps as residuals (tol {SHARDED_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: {name} disagrees with the unsharded gradient on K5's sweeps")
+
+
 def phase_sharded(torch, smi, entries):
     """Sharded SGA (K1, K5 / K3, K6) and LGA (K2 / K4) on SHARDS ranks that
     share the card, against the unsharded kernels in this process."""
@@ -698,6 +804,8 @@ def phase_sharded(torch, smi, entries):
                 log(f"  {tag}: {k} norm-relative {e:.3e} (tol {SHARDED_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{tag}: {k} disagrees with the unsharded gradient")
+            if case["op"] == "sga":
+                sharded_grad_gap(torch, tag, x.detach(), other.detach(), inputs["gbar"], res)
         # Launches on every rank: 2 K1 + 2 x nchunks K5 forward, 2 K3 + 2 x nchunks K6 backward.
         if case["op"] == "sga":
             n = len(chunk_layout(case["shape"][-1], case.get("chunks", 0))[1])

@@ -14,53 +14,92 @@
 // that one (N, 4, 5, H, W) tensor feeds all four directions.  With
 // `accumulate` set the sweep writes max(out, A) instead of A, which fuses
 // the max over the four directions into the sweeps: the first direction
-// stores, the other three take the running max in place.
+// stores, the other three take the running max in place.  Sums run in f32;
+// the output is rounded to x's dtype.
 //
-// Layout: x and out are (N, D, H, W) contiguous (the model's NCDHW volume
-// with B and C folded).  A sweep along H walks l = h with 32 lanes on the
-// contiguous W axis; a sweep along W walks l = w with lanes on H, whose
-// elements lie W apart.  Reverse sweeps walk l backwards (no flip).
+// Bound on this card: bytes.  A launch reads x and 5 weight planes and
+// writes the output (and reads it first when accumulating): at GANet_deep's
+// full-res block (32, 64, 192, 320) in bf16 that is 523 MB (0.156 ms at
+// 3.35 TB/s) for a storing launch and 775 MB (0.231 ms) for an accumulating
+// one, against about 10 f32 operations an element.  The recurrence is
+// sequential in l; the parallelism is the columns, one (n, m) position
+// across the sweep (m = w for sweeps along H, m = h along W).
 //
-// Bound on this card: bytes.  Per sweep it reads x and the 5 weights once
-// and writes the output once (reads it again when accumulating), about
-// 10 flops per element against 6-10 bytes moved, so the H100's 3.35 TB/s
-// binds long before its 67 TFLOP/s of f32.  The recurrence is sequential
-// in l; parallelism comes from (n, lanes).  One block owns one n, a tile of
-// lanes and all D bins, and loops over l, holding the previous step's
-// (D, lanes) column in shared memory, with the max over d taken through
-// warp shuffles and shared memory.  Four launches per `sga` move 11 volume
-// passes (x read 4 times, the output written 4 and read back 3) where the
-// bound counts 2.
-//
-// What the design does about the bound: every element is read once and
-// written once per sweep, with whole memory sectors, in one of two ways.
-//  * Lanes contiguous (sweeps along H): a block of 32 lanes x 8 rows of d;
-//    each step's 32 lanes of a d row are one coalesced access.  The next
-//    step's x, weights and (when accumulating) running max are loaded into
-//    registers before the current step's arithmetic, so memory latency
-//    overlaps the two-barrier step.
-//  * Lanes strided (sweeps along W): the lanes lie W elements apart, one
-//    sector per element per step, which thrashed L2 (12.45 ms per W sweep
-//    against 0.46 ms per H sweep at (32, 64, 192, 320) f32 on an H100 80GB
-//    HBM3 at 700 W, chip_smoke.py).  Instead a block of 16 lanes x 16 rows
-//    moves the volume in chunks of 8 steps staged in shared memory, read
-//    and written along l (one 32-byte sector per (d, lane) row in f32).
-//    The next chunk's x, weights and running max are loaded into registers
-//    while the current chunk's 8 steps run from shared memory, and the
-//    narrower tile gives twice the blocks, so loads stay in flight.
+// Design: register-resident columns, no block barrier.
+//  * A column's state A[l-1, :, m] lives in f32 registers, split over a
+//    group of G lanes of one warp, B bins a lane (lane g owns d in
+//    [g*B, g*B + B)); G and B are template parameters chosen from D and the
+//    axis (below).  The max over d is an in-lane max plus log2(G)
+//    xor-shuffles (one `redux.sync` for a whole warp); the two d +- 1
+//    neighbours across a lane boundary are one shuffle each; the state is
+//    updated in place, the old d-1 value carried in one register.
+//  * Each warp stages its own columns' inputs, x and the 5 weight rows
+//    (and, along H, the running max when accumulating), into its own ring
+//    of shared memory by asynchronous copies ahead of use, and waits on
+//    them with `cp.async.wait_group` plus `__syncwarp` once per stage.
+//    Warps never wait on each other: the kernel has no `__syncthreads`.
+//    Results are written over the consumed x of the stage and leave it as
+//    whole rows of memory.
+//  * Sweeps along H (l = h): a column group is G lanes, at most 16 bins a
+//    lane up to D = 32 and 32 above (2 x 32 at D = 64), and a warp owns
+//    32/G columns adjacent along W, so a stage is one step: D rows of x
+//    (and D of running max) plus 5 weight rows of 32/G contiguous elements
+//    (32 bytes in bf16 at D = 64), copied 16 bytes at a time.  4 stages, 3
+//    steps in flight; 2 warps a block.  Rows of bin d sit at
+//    (d % B) * G + d / B so the lanes of a warp read one contiguous span;
+//    outputs go back as 16-byte stores.  Measured on an H100 80GB HBM3 at
+//    700 W (chip_smoke.py phase 2, full-res block, bf16, storing): 4 lanes
+//    x 16 bins, whose rows are 16 bytes, took 0.737 ms a launch; 2 x 32
+//    took 0.353 ms.
+//  * Sweeps along W (l = w): the rows a column needs lie W apart, so the
+//    run along W that a stage holds decides the bandwidth: a stage holds
+//    RUN = 128 bytes of each row (64 bf16 or 32 f32 steps).  (With 16-byte
+//    runs, 8 columns a warp, the full-res f32 W sweep took 3.35 ms a
+//    storing launch, chip_smoke.py phase 2 on the same card.)  Shared
+//    memory then holds few columns, so one column a warp: its D bins over
+//    all 32 lanes (B = 1, 2 or 4 a lane, d = g*B + i), the max over d one
+//    `redux.sync` on an order-preserving integer image of the floats.  A
+//    stage at D = 64 is (64 + 5) rows x 132 bytes, 2 stages (one in
+//    flight), 9 KB a warp.  Rows are copied by 4-byte `cp.async`, one
+//    128-byte row a warp instruction, into a pitch of 33 words, so that the
+//    lanes' reads of one step down the rows (bin row (d % B) * 32 + d / B)
+//    fall in 32 different banks; 16-byte copies would force a pitch of
+//    whole 16-byte units and a 4-way conflict on every read.  The running
+//    max of an accumulating launch is not staged: each lane loads its
+//    stage's 4-byte units of it into registers while the stage is
+//    computed and takes the max at the store, which keeps as many columns
+//    in flight as a storing launch.
+//  * Alignment.  The weights of direction k start k*5*H*W elements in, and
+//    a row starts at an odd element when W is odd.  Each sweep has two
+//    staging paths: vectorised (16-byte copies and stores along H, 4-byte
+//    copies and stores along W) when x, w and out and every row start are
+//    aligned to the copy, as at every shape of the model's paths;
+//    element-wise (`ld.global` -> `st.shared`, one element a copy, and
+//    element stores) otherwise.  Steps of a ragged last stage along W are
+//    never run, so they cannot advance the carry.
+//  * bf16 is widened and rounded one element at a time in the recurrence,
+//    not in pairs: no 4-byte word of the ring holds two elements one lane
+//    needs in one step.  Along H a lane's bins lie in different rows and
+//    the element beside its own in a row is another lane's column; along W
+//    it is the same row's next step, which the sequential recurrence reads
+//    only after this one.  Pairs occur only in the running max of an
+//    accumulating W launch, a lane's 4-byte units, and are converted there
+//    as pairs (`umax`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanesH = 32;  // lanes per block, sweeps along H
-constexpr int kLanesW = 16;  // lanes per block, sweeps along W
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;    // steps per staged chunk (sweeps along W)
-constexpr int kPitch = 18;   // padded step-row pitch of the staged chunks
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsH = 2;    // warps per block, sweeps along H
+constexpr int kStagesH = 4;   // steps in a warp's ring, sweeps along H
+constexpr int kWarpsW = 1;    // warps per block, sweeps along W
+constexpr int kStagesW = 2;   // stages in a warp's ring, sweeps along W
+constexpr int kRunW = 128;    // bytes of a row a W-sweep stage holds
+constexpr int kCopy = 16;     // bytes of one copy along H
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -70,260 +109,383 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// A block is LANES lanes x (kThreads / LANES) rows; thread (tx, ty) owns
-// the bins d = ty + q * rows, q < DPT.  prev (D, LANES) holds A at the
-// previous step and red (kWarps, LANES) one partial max over d per warp.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-// One step of the recurrence for this thread's bins; the first step copies x.
-template <int LANES, int DPT>
-__device__ __forceinline__ void recur(const float (&xv)[DPT], const float (&wv)[5], bool first,
-                                      const float* prev, const float* red, int D, int tx,
-                                      int ty, float (&nv)[DPT]) {
-  constexpr int kRowsB = kThreads / LANES;
+// The max of v over the warp: one redux.sync on the floats' order-preserving
+// integer image (negative floats have their magnitude bits flipped).
+__device__ __forceinline__ float warp_max(float v) {
+  int i = __float_as_int(v);
+  i ^= (i >> 31) & 0x7fffffff;
+  i = __reduce_max_sync(kFull, i);
+  i ^= (i >> 31) & 0x7fffffff;
+  return __int_as_float(i);
+}
+
+// One step of a column's recurrence for this lane's bins d = dlo + i: a
+// holds A[l-1] (0 at bins >= D) and becomes A[l]; xat(i) is x at bin i.
+// The first step copies x.  Every lane of the warp calls it together.
+template <int G, int B, typename XAt>
+__device__ __forceinline__ void recur(float (&a)[B], XAt xat, const float (&wv)[5], int g, int dlo,
+                                      int D, bool first) {
   if (first) {
 #pragma unroll
-    for (int q = 0; q < DPT; ++q) nv[q] = xv[q];
+    for (int i = 0; i < B; ++i) a[i] = dlo + i < D ? xat(i) : 0.f;
     return;
   }
-  float pmax = red[tx];
+  float m = -CUDART_INF_F;
 #pragma unroll
-  for (int r = 1; r < kWarps; ++r) pmax = fmaxf(pmax, red[r * LANES + tx]);
-#pragma unroll
-  for (int q = 0; q < DPT; ++q) {
-    const int d = ty + q * kRowsB;
-    if (d < D) {
-      const float p = prev[d * LANES + tx];
-      const float pdm1 = d > 0 ? prev[(d - 1) * LANES + tx] : 0.f;
-      const float pdp1 = d + 1 < D ? prev[(d + 1) * LANES + tx] : 0.f;
-      nv[q] = wv[0] * xv[q] + wv[1] * p + wv[2] * pdm1 + wv[3] * pdp1 + wv[4] * pmax;
+  for (int i = 0; i < B; ++i)
+    if (dlo + i < D) m = fmaxf(m, a[i]);
+  float left = 0.f, right = 0.f;  // A[l-1] at dlo - 1 and dlo + B
+  if (G > 1) {
+    if (G == 32) {
+      m = warp_max(m);
     } else {
-      nv[q] = 0.f;
+#pragma unroll
+      for (int off = 1; off < G; off *= 2) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
     }
+    left = __shfl_up_sync(kFull, a[B - 1], 1);
+    right = __shfl_down_sync(kFull, a[0], 1);
+    if (g == 0) left = 0.f;
+    if (g == G - 1) right = 0.f;
+  }
+  float prev = left;  // the old value at d - 1
+#pragma unroll
+  for (int i = 0; i < B; ++i) {
+    const float cur = a[i];
+    const float next = i + 1 < B ? a[i + 1] : right;
+    const float v = wv[0] * xat(i) + wv[1] * cur + wv[2] * prev + wv[3] * next + wv[4] * m;
+    a[i] = dlo + i < D ? v : 0.f;
+    prev = cur;
   }
 }
 
-// Make this step's A the previous step of the next one (between barriers).
-template <int LANES, int DPT>
-__device__ __forceinline__ void publish(const float (&nv)[DPT], float* prev, float* red, int D,
-                                        int tx, int ty) {
-  constexpr int kRowsB = kThreads / LANES;
-  float pm = -CUDART_INF_F;
-#pragma unroll
-  for (int q = 0; q < DPT; ++q) {
-    const int d = ty + q * kRowsB;
-    if (d < D) {
-      prev[d * LANES + tx] = nv[q];
-      pm = fmaxf(pm, nv[q]);
-    }
-  }
-  // A warp spans 32 / LANES rows: fold them, then one partial per warp.
-#pragma unroll
-  for (int off = LANES; off < 32; off *= 2) pm = fmaxf(pm, __shfl_xor_sync(0xffffffffu, pm, off));
-  const int lin = ty * LANES + tx;
-  if (lin % 32 < LANES) red[(lin / 32) * LANES + tx] = pm;
-}
+// Sweep along H.  A warp's ring holds kStagesH steps, each (in elements of
+// T) DP rows of x, DP rows of running max when accumulating, then 5 weight
+// rows, every row TM columns.
+template <typename T, int G, int B>
+__global__ void __launch_bounds__(32 * kWarpsH)
+sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int N,
+                   int D, int H, int W, long long w_nstride, int reverse, int accumulate, int vec) {
+  constexpr int TM = 32 / G;             // columns a warp owns
+  constexpr int DP = G * B;              // bin rows a stage holds
+  constexpr int EPC = kCopy / sizeof(T); // elements of one 16-byte copy
+  constexpr int CPR = TM / EPC;          // copies per row
+  static_assert(CPR >= 1 && TM % EPC == 0, "a row is whole 16-byte copies");
+  extern __shared__ __align__(16) unsigned char smem[];
 
-// Sweep along H: lanes on the contiguous W axis, l = h.  Shared memory:
-// prev and red, f32.
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
-sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-                   int D, int H, int W, long long w_nstride, int reverse, int accumulate) {
-  constexpr int kRowsB = kThreads / kLanesH;
-  extern __shared__ float smem[];
-  float* prev = smem;
-  float* red = smem + D * kLanesH;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int m = blockIdx.x * kLanesH + tx;
-  const bool active = m < W;
+  const int tiles = (W + TM - 1) / TM;
+  const int warp = blockIdx.x * kWarpsH + threadIdx.x / 32;
+  if (warp >= N * tiles) return;
+  const int lane = threadIdx.x % 32, c = lane / G, g = lane % G;
+  const int n = warp / tiles, m0 = (warp % tiles) * TM;
   const long long plane = (long long)H * W;
-  const long long base = (long long)blockIdx.y * D * plane + (active ? m : 0);
-  const T* xn = x + base;
-  T* on = out + base;
-  const T* wn = w + blockIdx.y * w_nstride + (active ? m : 0);
-
-  // Registers of one step: x and the running max (when accumulating) of
-  // this thread's bins, and the 5 weights; `c` in use, `n` in flight.
-  float xc[DPT], oc[DPT], wc[5], xnx[DPT], onx[DPT], wnx[5];
-  auto load = [&](int l, float (&xv)[DPT], float (&ov)[DPT], float (&wv)[5]) {
-    const long long off = (long long)l * W;
-#pragma unroll
-    for (int q = 0; q < DPT; ++q) {
-      const int d = ty + q * kRowsB;
-      const bool in = active && d < D;
-      xv[q] = in ? to_f32(xn[d * plane + off]) : 0.f;
-      ov[q] = in && accumulate ? to_f32(on[d * plane + off]) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) wv[k] = active ? to_f32(wn[k * plane + off]) : 0.f;
+  const T* xn = x + (long long)n * D * plane;
+  T* on = out + (long long)n * D * plane;
+  const T* wn = w + n * w_nstride;
+  const int xrows = D * (1 + accumulate);  // rows of x and running max copied
+  const int wrow = DP * (1 + accumulate);  // first weight row of a stage
+  const int stage = (wrow + 5) * TM;       // elements of a stage
+  T* ring = reinterpret_cast<T*>(smem) + (size_t)(threadIdx.x / 32) * kStagesH * stage;
+  // Row r of the copy order (x bins, running max, weights): its stage row
+  // and its start in memory.
+  auto srow = [&](int r) {
+    return r < D ? (r % B) * G + r / B
+                 : r < xrows ? DP + ((r - D) % B) * G + (r - D) / B : wrow + r - xrows;
+  };
+  auto grow = [&](int r) -> const T* {
+    return r < D ? xn + r * plane : r < xrows ? on + (r - D) * plane : wn + (r - xrows) * plane;
   };
 
-  load(reverse ? H - 1 : 0, xc, oc, wc);
-  for (int s = 0; s < H; ++s) {
-    const int l = reverse ? H - 1 - s : s;
-    if (s + 1 < H) load(reverse ? l - 1 : l + 1, xnx, onx, wnx);
-    float nv[DPT];
-    recur<kLanesH, DPT>(xc, wc, s == 0, prev, red, D, tx, ty, nv);
-    __syncthreads();  // every read of prev/red for this step is done
-    publish<kLanesH, DPT>(nv, prev, red, D, tx, ty);
-#pragma unroll
-    for (int q = 0; q < DPT; ++q) {
-      const int d = ty + q * kRowsB;
-      if (active && d < D)
-        on[d * plane + (long long)l * W] = from_f32<T>(accumulate ? fmaxf(oc[q], nv[q]) : nv[q]);
-    }
-    __syncthreads();  // prev/red hold this step for the next one
-#pragma unroll
-    for (int q = 0; q < DPT; ++q) {
-      xc[q] = xnx[q];
-      oc[q] = onx[q];
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) wc[k] = wnx[k];
-  }
-}
-
-// Sweep along W: lanes on H (W elements apart), l = w, through chunks of
-// kChunk steps staged in shared memory: x, then A (D rows), the weights
-// (5 rows) and the running max (D rows), each row (kChunk, kPitch) of T
-// indexed [row][step][lane]; then prev and red as f32.
-template <typename T> __host__ __device__ size_t staged_bytes(int D) {
-  return ((size_t)(2 * D + 5) * kChunk * kPitch * sizeof(T) + 15) / 16 * 16;
-}
-
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
-sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-                   int D, int H, int W, long long w_nstride, int reverse, int accumulate) {
-  constexpr int kRowsB = kThreads / kLanesW;
-  constexpr int kTile = kChunk * kLanesW;                   // elements of one row
-  constexpr int kPerX = DPT * kRowsB * kTile / kThreads;  // x (and max) per thread
-  constexpr int kPerW = (5 * kTile + kThreads - 1) / kThreads;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  T* ws = xs + (size_t)D * kChunk * kPitch;
-  T* os = ws + (size_t)5 * kChunk * kPitch;
-  float* prev = reinterpret_cast<float*>(smem_raw + staged_bytes<T>(D));
-  float* red = prev + D * kLanesW;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kLanesW + tx;
-  const int h0 = blockIdx.x * kLanesW;
-  const long long plane = (long long)H * W;
-  const T* xn = x + (long long)blockIdx.y * D * plane;
-  T* on = out + (long long)blockIdx.y * D * plane;
-  const T* wn = w + blockIdx.y * w_nstride;
-  const int nchunks = (W + kChunk - 1) / kChunk;
-  const T zero = from_f32<T>(0.f);
-
-  // Element e of a (rows, kChunk, kLanesW) tile -> (row, step j, lane),
-  // with j fastest so that neighbouring threads read neighbouring addresses.
-  T px[kPerX], po[kPerX], pw[kPerW];
-  auto fetch = [&](int ci) {  // chunk ci (in sweep order) into registers
-    const int l0 = (reverse ? nchunks - 1 - ci : ci) * kChunk;
-    const int nl = min(kChunk, W - l0);
-#pragma unroll
-    for (int i = 0; i < kPerX; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, d = e / kTile;
-      const bool in = d < D && j < nl && h0 + lane < H;
-      const long long g = d * plane + (long long)(h0 + lane) * W + l0 + j;
-      px[i] = in ? xn[g] : zero;
-      po[i] = in && accumulate ? on[g] : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < kPerW; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, k = e / kTile;
-      const bool in = k < 5 && j < nl && h0 + lane < H;
-      pw[i] = in ? wn[k * plane + (long long)(h0 + lane) * W + l0 + j] : zero;
-    }
-  };
-  auto stash = [&]() {  // registers into shared memory
-#pragma unroll
-    for (int i = 0; i < kPerX; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, d = e / kTile;
-      if (d < D) {
-        xs[(d * kChunk + j) * kPitch + lane] = px[i];
-        os[(d * kChunk + j) * kPitch + lane] = po[i];
+  // Stage the step s (in sweep order) into slot `slot`.
+  auto issue = [&](int s, int slot) {
+    const long long off = (long long)(reverse ? H - 1 - s : s) * W + m0;
+    T* st = ring + slot * stage;
+    if (vec) {
+      for (int q = lane; q < (xrows + 5) * CPR; q += 32) {
+        const int r = q / CPR, col = (q % CPR) * EPC;
+        if (m0 + col < W)  // whole copies: W is a multiple of EPC
+          cp_async16(st + srow(r) * TM + col, grow(r) + off + col);
+      }
+    } else {
+      for (int q = lane; q < (xrows + 5) * TM; q += 32) {
+        const int r = q / TM, col = q % TM;
+        if (m0 + col < W) st[srow(r) * TM + col] = grow(r)[off + col];
       }
     }
-#pragma unroll
-    for (int i = 0; i < kPerW; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, k = e / kTile;
-      if (k < 5) ws[(k * kChunk + j) * kPitch + lane] = pw[i];
-    }
   };
 
-  fetch(0);
-  stash();
-  __syncthreads();
-  int s = 0;  // sweep step
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int l0 = (reverse ? nchunks - 1 - ci : ci) * kChunk;
-    const int nl = min(kChunk, W - l0);
-    if (ci + 1 < nchunks) fetch(ci + 1);  // in flight during this chunk's steps
+  float a[B];
+#pragma unroll
+  for (int i = 0; i < B; ++i) a[i] = 0.f;
+  const int dlo = g * B;
+#pragma unroll
+  for (int k = 0; k < kStagesH - 1; ++k) {
+    if (k < H) issue(k, k);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < H; ++s) {
+    if (s + kStagesH - 1 < H) issue(s + kStagesH - 1, (s + kStagesH - 1) % kStagesH);
+    cp_async_commit();
+    cp_async_wait<kStagesH - 1>();
+    __syncwarp();  // step s of every lane's copies is in the ring
+    T* st = ring + (s % kStagesH) * stage;
+    float wv[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) wv[k] = to_f32(st[(wrow + k) * TM + c]);
+    recur<G, B>(a, [&](int i) { return to_f32(st[(i * G + g) * TM + c]); }, wv, g, dlo, D, s == 0);
+#pragma unroll
+    for (int i = 0; i < B; ++i) {  // the result goes over the consumed x
+      float v = a[i];
+      if (accumulate) v = fmaxf(v, to_f32(st[(DP + i * G + g) * TM + c]));
+      st[(i * G + g) * TM + c] = from_f32<T>(v);
+    }
+    __syncwarp();  // every lane's results are in the slot
+    T* dst = on + (long long)(reverse ? H - 1 - s : s) * W + m0;
+    if (vec) {
+      for (int q = lane; q < D * CPR; q += 32) {
+        const int d = q / CPR, col = (q % CPR) * EPC;
+        if (m0 + col < W)
+          *reinterpret_cast<uint4*>(dst + d * plane + col) =
+              *reinterpret_cast<const uint4*>(st + srow(d) * TM + col);
+      }
+    } else {
+      for (int q = lane; q < D * TM; q += 32) {
+        const int d = q / TM, col = q % TM;
+        if (m0 + col < W) dst[d * plane + col] = st[srow(d) * TM + col];
+      }
+    }
+    __syncwarp();  // every lane is done with the slot the next step refills
+  }
+  cp_async_wait<0>();
+}
 
+// Sweep along W: one column (n, h) a warp, bin d = g*B + i on lane g.  A
+// warp's ring holds kStagesW stages of S = kRunW / elem steps; a stage is
+// rows of S elements at a pitch of kRunW + 4 bytes: 32*B rows of x (bin d
+// at row (d % B) * 32 + d / B), then 5 weight rows.  When accumulating,
+// the running max of a stage is loaded into registers (KU 4-byte units a
+// lane) while the stage is computed, and taken at the store.
+template <typename T, int B>
+__global__ void __launch_bounds__(32 * kWarpsW)
+sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int N,
+                   int D, int H, int W, long long w_nstride, int reverse, int accumulate, int vec) {
+  constexpr int S = kRunW / sizeof(T);       // steps of a stage
+  constexpr int U = kRunW / 4;               // 4-byte units of a row
+  constexpr int EPU = 4 / sizeof(T);         // elements of a unit
+  constexpr int P = (kRunW + 4) / sizeof(T); // row pitch, elements
+  constexpr int DP = 32 * B;                 // bin rows a stage holds
+  constexpr int KU = B * U;                  // units of a stage's rows a lane stores
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int warp = blockIdx.x * kWarpsW + threadIdx.x / 32;
+  if (warp >= N * H) return;
+  const int g = threadIdx.x % 32;
+  const int n = warp / H, h = warp % H;
+  const long long plane = (long long)H * W;
+  const T* xn = x + (long long)n * D * plane + (long long)h * W;
+  T* on = out + (long long)n * D * plane + (long long)h * W;
+  const T* wn = w + n * w_nstride + (long long)h * W;
+  const int stage = (DP + 5) * P;
+  T* ring = reinterpret_cast<T*>(smem) + (size_t)(threadIdx.x / 32) * kStagesW * stage;
+  const int nst = (W + S - 1) / S;
+  auto first_col = [&](int t) { return (reverse ? nst - 1 - t : t) * S; };
+  // Row r of the copy order (x bins, then weights): its stage row and its
+  // start in memory at the column's first step.
+  auto srow = [&](int r) { return r < D ? (r % B) * 32 + r / B : DP + r - D; };
+  auto grow = [&](int r) -> const T* { return r < D ? xn + r * plane : wn + (r - D) * plane; };
+
+  // Stage t (in sweep order) into slot `slot`.
+  auto issue = [&](int t, int slot) {
+    const int l0 = first_col(t), nl = min(S, W - l0);
+    T* st = ring + slot * stage;
+    if (vec) {  // a 4-byte unit a lane, 128 bytes a warp; W is a multiple of EPU
+      for (int q = g; q < (D + 5) * U; q += 32) {
+        const int r = q / U, e = (q % U) * EPU;
+        if (e < nl) cp_async4(st + srow(r) * P + e, grow(r) + l0 + e);
+      }
+    } else {
+      for (int q = g; q < (D + 5) * S; q += 32) {
+        const int r = q / S, j = q % S;
+        if (j < nl) st[srow(r) * P + j] = grow(r)[l0 + j];
+      }
+    }
+  };
+  // The elementwise max of two units of T.
+  auto umax = [](uint32_t u, uint32_t v) {
+    if (EPU == 1) return __float_as_uint(fmaxf(__uint_as_float(u), __uint_as_float(v)));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+    const __nv_bfloat162 m = __floats2bfloat162_rn(fmaxf(a.x, b.x), fmaxf(a.y, b.y));
+    return *reinterpret_cast<const uint32_t*>(&m);
+  };
+
+  float a[B];
+#pragma unroll
+  for (int i = 0; i < B; ++i) a[i] = 0.f;
+  const int dlo = g * B;
+#pragma unroll
+  for (int k = 0; k < kStagesW - 1; ++k) {
+    if (k < nst) issue(k, k);
+    cp_async_commit();
+  }
+  int s = 0;  // sweep step
+#pragma unroll 1
+  for (int t = 0; t < nst; ++t) {
+    if (t + kStagesW - 1 < nst) issue(t + kStagesW - 1, (t + kStagesW - 1) % kStagesW);
+    cp_async_commit();
+    const int l0 = first_col(t), nl = min(S, W - l0);
+    T* dst = on + l0;
+    uint32_t old[KU];  // the running max of this stage's units, in flight
+    if (accumulate && vec) {
+#pragma unroll
+      for (int m = 0; m < KU; ++m) {
+        const int q = g + 32 * m, r = q / U, e = (q % U) * EPU;
+        if (q < D * U && e < nl) old[m] = *reinterpret_cast<const uint32_t*>(dst + r * plane + e);
+      }
+    }
+    cp_async_wait<kStagesW - 1>();
+    __syncwarp();  // stage t of every lane's copies is in the ring
+    T* st = ring + (t % kStagesW) * stage;
+#pragma unroll 1
     for (int jj = 0; jj < nl; ++jj, ++s) {
       const int j = reverse ? nl - 1 - jj : jj;
-      float xv[DPT], wv[5], nv[DPT];
+      float wv[5];
 #pragma unroll
-      for (int q = 0; q < DPT; ++q) {
-        const int d = ty + q * kRowsB;
-        xv[q] = d < D ? to_f32(xs[(d * kChunk + j) * kPitch + tx]) : 0.f;
-      }
+      for (int k = 0; k < 5; ++k) wv[k] = to_f32(st[(DP + k) * P + j]);
+      recur<32, B>(a, [&](int i) { return to_f32(st[(i * 32 + g) * P + j]); }, wv, g, dlo, D,
+                   s == 0);
 #pragma unroll
-      for (int k = 0; k < 5; ++k) wv[k] = to_f32(ws[(k * kChunk + j) * kPitch + tx]);
-      recur<kLanesW, DPT>(xv, wv, s == 0, prev, red, D, tx, ty, nv);
-      __syncthreads();  // every read of prev/red for this step is done
-      publish<kLanesW, DPT>(nv, prev, red, D, tx, ty);
+      for (int i = 0; i < B; ++i)  // the result goes over the consumed x
+        if (dlo + i < D) st[(i * 32 + g) * P + j] = from_f32<T>(a[i]);
+    }
+    __syncwarp();  // every lane's results are in the slot
+    if (vec) {
 #pragma unroll
-      for (int q = 0; q < DPT; ++q) {
-        const int d = ty + q * kRowsB;
-        if (d < D) xs[(d * kChunk + j) * kPitch + tx] = from_f32<T>(nv[q]);
+      for (int m = 0; m < KU; ++m) {
+        const int q = g + 32 * m, r = q / U, e = (q % U) * EPU;
+        if (q < D * U && e < nl) {
+          uint32_t v = *reinterpret_cast<const uint32_t*>(st + srow(r) * P + e);
+          if (accumulate) v = umax(v, old[m]);
+          *reinterpret_cast<uint32_t*>(dst + r * plane + e) = v;
+        }
       }
-      __syncthreads();  // prev/red hold this step for the next one
-    }
-
-    for (int e = tid; e < D * kTile; e += kThreads) {
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, d = e / kTile;
-      if (j < nl && h0 + lane < H) {
-        const int idx = (d * kChunk + j) * kPitch + lane;
-        const T a = xs[idx];
-        on[d * plane + (long long)(h0 + lane) * W + l0 + j] =
-            accumulate ? from_f32<T>(fmaxf(to_f32(os[idx]), to_f32(a))) : a;
+    } else {
+      for (int q = g; q < D * S; q += 32) {
+        const int r = q / S, j = q % S;
+        if (j < nl) {
+          const T v = st[srow(r) * P + j];
+          dst[r * plane + j] =
+              accumulate ? from_f32<T>(fmaxf(to_f32(v), to_f32(dst[r * plane + j]))) : v;
+        }
       }
     }
-    __syncthreads();  // the chunk is written back before the next is staged
-    if (ci + 1 < nchunks) {
-      stash();
-      __syncthreads();
-    }
+    __syncwarp();  // every lane is done with the slot before it is refilled
   }
+  cp_async_wait<0>();
 }
 
-template <typename T, int DPT>
-cudaError_t launch_h(const T* x, const T* w, T* out, int N, int D, int H, int W, int reverse,
-                     int accumulate, long long w_nstride, cudaStream_t stream) {
-  const size_t shmem = sizeof(float) * (size_t)(D + kWarps) * kLanesH;
-  dim3 grid((W + kLanesH - 1) / kLanesH, N);
-  sga_sweep_h_kernel<T, DPT><<<grid, dim3(kLanesH, kThreads / kLanesH), shmem, stream>>>(
-      x, w, out, D, H, W, w_nstride, reverse, accumulate);
-  return cudaGetLastError();
+// What one launch runs: kernel geometry and staging path.
+struct Plan {
+  int vec, G, B, steps, stages, warps_per_block, blocks;
+  size_t smem;
+};
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// G lanes a column, B bins a lane.  Along H: rows of at least 32 bytes in
+// bf16 up to D = 64.  Along W: a warp a column.
+#define SGA_BY_D_H(CALL)            \
+  if (D <= 8) return CALL(1, 8);    \
+  if (D <= 16) return CALL(2, 8);   \
+  if (D <= 32) return CALL(2, 16);  \
+  if (D <= 64) return CALL(2, 32);  \
+  if (D <= 128) return CALL(4, 32); \
+  return cudaErrorInvalidValue;
+#define SGA_BY_D_W(CALL)            \
+  if (D <= 32) return CALL(32, 1);  \
+  if (D <= 64) return CALL(32, 2);  \
+  if (D <= 128) return CALL(32, 4); \
+  return cudaErrorInvalidValue;
+
+template <typename T, int G, int B>
+Plan plan(const void* x, const void* w, const void* out, int N, int D, int H, int W, int axis_w,
+          int accumulate, long long w_nstride) {
+  Plan p;
+  p.G = G;
+  p.B = B;
+  if (axis_w) {
+    const int elem = sizeof(T);
+    p.vec = aligned(x, 4) && aligned(w, 4) && aligned(out, 4) && (W * elem) % 4 == 0 &&
+            (w_nstride * elem) % 4 == 0;
+    p.steps = kRunW / elem;
+    p.stages = kStagesW;
+    p.warps_per_block = kWarpsW;
+    p.smem = (size_t)kWarpsW * kStagesW * (32 * B + 5) * (kRunW + 4);
+    p.blocks = (int)(((long long)N * H + kWarpsW - 1) / kWarpsW);
+  } else {
+    const int TM = 32 / G;
+    p.vec = aligned(x, kCopy) && aligned(w, kCopy) && aligned(out, kCopy) &&
+            (W * sizeof(T)) % kCopy == 0 && (w_nstride * (long long)sizeof(T)) % kCopy == 0;
+    p.steps = 1;
+    p.stages = kStagesH;
+    p.warps_per_block = kWarpsH;
+    p.smem = (size_t)kWarpsH * kStagesH * (G * B * (1 + accumulate) + 5) * TM * sizeof(T);
+    const long long warps = (long long)N * ((W + TM - 1) / TM);
+    p.blocks = (int)((warps + kWarpsH - 1) / kWarpsH);
+  }
+  return p;
 }
 
-template <typename T, int DPT>
-cudaError_t launch_w(const T* x, const T* w, T* out, int N, int D, int H, int W, int reverse,
-                     int accumulate, long long w_nstride, cudaStream_t stream) {
-  const size_t shmem = staged_bytes<T>(D) + sizeof(float) * (size_t)(D + kWarps) * kLanesW;
-  cudaError_t err = cudaFuncSetAttribute(
-      sga_sweep_w_kernel<T, DPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+template <typename T, int G, int B>
+const void* kernel_of() {
+  if constexpr (G == 32)
+    return reinterpret_cast<const void*>(sga_sweep_w_kernel<T, B>);
+  else
+    return reinterpret_cast<const void*>(sga_sweep_h_kernel<T, G, B>);
+}
+
+template <typename T, int G, int B>
+cudaError_t launch(const T* x, const T* w, T* out, int N, int D, int H, int W, int axis_w,
+                   int reverse, int accumulate, long long w_nstride, cudaStream_t stream) {
+  const Plan p = plan<T, G, B>(x, w, out, N, D, H, W, axis_w, accumulate, w_nstride);
+  cudaError_t err = cudaFuncSetAttribute(kernel_of<T, G, B>(),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((H + kLanesW - 1) / kLanesW, N);
-  sga_sweep_w_kernel<T, DPT><<<grid, dim3(kLanesW, kThreads / kLanesW), shmem, stream>>>(
-      x, w, out, D, H, W, w_nstride, reverse, accumulate);
+  if constexpr (G == 32)
+    sga_sweep_w_kernel<T, B><<<p.blocks, 32 * kWarpsW, p.smem, stream>>>(
+        x, w, out, N, D, H, W, w_nstride, reverse, accumulate, p.vec);
+  else
+    sga_sweep_h_kernel<T, G, B><<<p.blocks, 32 * kWarpsH, p.smem, stream>>>(
+        x, w, out, N, D, H, W, w_nstride, reverse, accumulate, p.vec);
   return cudaGetLastError();
+}
+
+template <typename T, int G, int B>
+cudaError_t describe(const void* x, const void* w, const void* out, int N, int D, int H, int W,
+                     int axis_w, int accumulate, long long w_nstride, int* info) {
+  const Plan p = plan<T, G, B>(x, w, out, N, D, H, W, axis_w, accumulate, w_nstride);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of<T, G, B>());
+  if (err != cudaSuccess) return err;
+  const int v[] = {p.vec, attr.numRegs, (int)p.smem, (int)attr.localSizeBytes, p.G, p.B,
+                   p.steps, p.stages, p.warps_per_block, p.blocks};
+  for (int i = 0; i < 10; ++i) info[i] = v[i];
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -333,28 +495,32 @@ cudaError_t dispatch(const void* xv, const void* wv, void* outv, int N, int D, i
   const T* x = static_cast<const T*>(xv);
   const T* w = static_cast<const T*>(wv);
   T* out = static_cast<T*>(outv);
-  if (axis_w) {  // 16 rows of d: DPT = ceil(D / 16)
-    const int dpt = (D + 15) / 16;
-    if (dpt <= 1) return launch_w<T, 1>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-    if (dpt <= 2) return launch_w<T, 2>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-    if (dpt <= 4) return launch_w<T, 4>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-    if (dpt <= 8) return launch_w<T, 8>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-    return cudaErrorInvalidValue;
+#define SGA_LAUNCH(G, B) \
+  launch<T, G, B>(x, w, out, N, D, H, W, axis_w, reverse, accumulate, w_nstride, stream)
+  if (axis_w) {
+    SGA_BY_D_W(SGA_LAUNCH)
   }
-  const int dpt = (D + 7) / 8;  // 8 rows of d
-  if (dpt <= 1) return launch_h<T, 1>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-  if (dpt <= 2) return launch_h<T, 2>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-  if (dpt <= 4) return launch_h<T, 4>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-  if (dpt <= 8) return launch_h<T, 8>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-  if (dpt <= 16) return launch_h<T, 16>(x, w, out, N, D, H, W, reverse, accumulate, w_nstride, stream);
-  return cudaErrorInvalidValue;
+  SGA_BY_D_H(SGA_LAUNCH)
+#undef SGA_LAUNCH
+}
+
+template <typename T>
+cudaError_t dispatch_describe(const void* x, const void* w, const void* out, int N, int D, int H,
+                              int W, int axis_w, int accumulate, long long w_nstride, int* info) {
+#define SGA_DESCRIBE(G, B) \
+  describe<T, G, B>(x, w, out, N, D, H, W, axis_w, accumulate, w_nstride, info)
+  if (axis_w) {
+    SGA_BY_D_W(SGA_DESCRIBE)
+  }
+  SGA_BY_D_H(SGA_DESCRIBE)
+#undef SGA_DESCRIBE
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest D one launch takes (rows of d x the largest DPT instantiated).
+// Largest D one launch takes (4 lanes x 32 bins along H, 32 x 4 along W).
 int sga_sweep_max_d() { return 128; }
 
 // x, out: (N, D, H, W); w: this direction's (N, 5, H, W) weights with a
@@ -370,6 +536,22 @@ int sga_sweep_fwd(const void* x, const void* w, void* out, int N, int D, int H, 
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(x, w, out, N, D, H, W, axis_w, reverse, accumulate,
                                    w_nstride, s);
+  return cudaErrorInvalidValue;
+}
+
+// What `sga_sweep_fwd` with these arguments launches, without launching:
+// info[0..9] = vectorised staging (1) or element-wise (0), registers a
+// thread, dynamic shared memory a block (bytes), local memory a thread
+// (bytes; spills), lanes a column G, bins a lane B, steps a stage, stages
+// in a warp's ring, warps a block, blocks.  Returns a CUDA error.
+int sga_sweep_fwd_describe(const void* x, const void* w, const void* out, int N, int D, int H,
+                           int W, int axis_w, int accumulate, long long w_nstride, int dtype,
+                           int* info) {
+  if (dtype == 0)
+    return dispatch_describe<float>(x, w, out, N, D, H, W, axis_w, accumulate, w_nstride, info);
+  if (dtype == 1)
+    return dispatch_describe<__nv_bfloat16>(x, w, out, N, D, H, W, axis_w, accumulate,
+                                            w_nstride, info);
   return cudaErrorInvalidValue;
 }
 

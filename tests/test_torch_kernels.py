@@ -17,6 +17,7 @@ for a rounding difference that an earlier pass hands on.
 import pytest
 import torch
 
+from chip_smoke import sga_describe
 from ganet_tpu_torch.ops import lga as G
 from ganet_tpu_torch.ops import sga as S
 from ganet_tpu_torch.ops.normalize import l1_normalize
@@ -61,6 +62,40 @@ def test_sga_sweeps_and_fused(cuda, shape, dtype):
         assert torch.equal(one, got)
     x5, w5 = x.view(1, N, D, H, W), w.view(1, N, 4, 5, H, W)
     _close(S.sga_ncdhw(x5, w5), S.sga_reference_ncdhw(x5, w5))
+
+
+# K1's staging: D across the splits of its bins over lanes (1, 2, 16, 33, 64,
+# 65, 128), sweep lengths below, at and one past the H-sweep ring (4 steps)
+# and a W-sweep stage (32 steps in float32, 64 in bfloat16), and a prime.
+# Along H, W = 40 (16-byte rows: vectorised staging) and W = 37 (odd:
+# element-wise staging, with the direction's weight offset); along W, the
+# staging is vectorised (4-byte units) unless a bfloat16 row is odd.
+K1_LENGTHS = (1, 4, 5, 13, 32, 33, 64, 65)
+
+
+@pytest.mark.parametrize("D", [1, 2, 16, 33, 64, 65, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sga_sweep_kernel_staging(cuda, D, dtype):
+    N = 2
+    for axis in ("h", "w"):
+        for L in K1_LENGTHS:
+            for across in (40, 37):
+                H, W = (L, across) if axis == "h" else (across, L)
+                x = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+                w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda), dim=2).to(dtype)
+                prev = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+                vec = (W * x.element_size()) % (4 if axis == "w" else 16) == 0
+                for direction, (ax, reverse) in enumerate(S.DIRECTIONS):
+                    if ax != axis:
+                        continue
+                    info = sga_describe(torch, x, w, axis, direction, False)
+                    assert info["vectorised"] == int(vec) and info["local_bytes"] == 0, info
+                    ref = S.sga_sweep_plain(x, w[:, direction], axis, reverse).to(dtype)
+                    got = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction)
+                    _close(got, ref)
+                    assert torch.equal(S.sga_sweep_kernel(x, w[:, direction].contiguous(), axis, reverse), got)
+                    acc = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction, out=prev.clone())
+                    _close(acc, torch.maximum(prev, ref))
 
 
 @pytest.mark.parametrize("radius", [1, 2])
