@@ -21,7 +21,11 @@ CUDA toolkit.  Phases, each printing its lines:
      random weights, through `build_model` and `predict`; launch counts of
      each kernel in that run, its latency and peak memory;
   6. the SGA gradient-sweep kernel (K3) against its plain version at the
-     training path's shapes, per direction, float32 and bfloat16;
+     training path's shapes, per direction, storing and accumulating,
+     float32 and bfloat16; per launch its time beside its own traffic
+     floor and its staging path, registers, shared and local memory (as
+     phase 2 for K1), and a block's 4 directions as the training step
+     runs them;
   7. the LGA backward kernel (K4) likewise at the training path's head;
   8. gradients of the whole model in train mode at 240x528, D=192, batch 1,
      float32 with TF32 off, through the kernels and through the plain
@@ -149,27 +153,13 @@ def phase_card(torch):
     return smi
 
 
-def sga_describe(torch, x, w, axis: str, direction: int, accumulate: bool) -> dict:
-    """What K1 launches for these tensors, from `sga_sweep_fwd_describe` in
-    its library: staging path, registers, shared memory, local memory
-    (spills) and geometry."""
-    import ctypes
-
-    from ganet_tpu_torch.ops import _build
-
-    fn = _build.load("sga_fwd").sga_sweep_fwd_describe
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                                                 ctypes.c_void_p]
-    N, D, H, W = x.shape
-    info = (ctypes.c_int * 10)()
-    status = fn(x.data_ptr(), w.data_ptr() + direction * 5 * H * W * w.element_size(), x.data_ptr(),
-                N, D, H, W, int(axis == "w"), int(accumulate), 20 * H * W,
-                {torch.float32: 0, torch.bfloat16: 1}[x.dtype], ctypes.addressof(info))
-    _build.check(status, "sga_sweep_fwd_describe")
-    keys = ("vectorised", "registers", "shared_bytes", "local_bytes", "lanes", "bins", "steps",
-            "stages", "warps", "blocks")
-    return dict(zip(keys, info))
+def describe_line(info: dict) -> str:
+    """One line of an SGA kernel's `describe` fields (ops/sga.py)."""
+    return (f"{'vectorised' if info['vectorised'] else 'element-wise'} staging, "
+            f"{info['registers']} registers, {info['shared_bytes']} B shared a block, "
+            f"{info['local_bytes']} B local; {info['lanes']} lanes x {info['bins']} bins a "
+            f"column, {info['steps']} steps x {info['stages']} stages, {info['warps']} "
+            f"warps a block, {info['blocks']} blocks")
 
 
 def sga_launch_floor_ms(x, accumulate: bool) -> float:
@@ -208,14 +198,9 @@ def phase_sga(torch, gen):
                 )
                 del acc
                 for accumulate, ms in ((False, sweep_ms), (True, acc_ms)):
-                    info = sga_describe(torch, x, w, axis, direction, accumulate)
+                    info = S.sga_describe(x, w, axis, direction, accumulate)
                     log(f"    one launch {'accumulating' if accumulate else 'storing'}: {ms:.3f} ms, "
-                        f"launch floor {sga_launch_floor_ms(x, accumulate):.4f} ms; "
-                        f"{'vectorised' if info['vectorised'] else 'element-wise'} staging, "
-                        f"{info['registers']} registers, {info['shared_bytes']} B shared a block, "
-                        f"{info['local_bytes']} B local; {info['lanes']} lanes x {info['bins']} bins a "
-                        f"column, {info['steps']} steps x {info['stages']} stages, {info['warps']} "
-                        f"warps a block, {info['blocks']} blocks")
+                        f"launch floor {sga_launch_floor_ms(x, accumulate):.4f} ms; {describe_line(info)}")
                     if not info["vectorised"] or info["local_bytes"]:
                         raise AssertionError(f"{tag}: K1 staged element-wise or spilled: {info}")
             x5 = x.view(B, C, D, H, W)
@@ -252,7 +237,7 @@ def phase_sga(torch, gen):
             x = torch.empty((N, D, H, W), device="cuda", dtype=dtype)
             w = torch.empty((N, 4, 5, H, W), device="cuda", dtype=dtype)
             for direction, (axis, _) in enumerate(S.DIRECTIONS):
-                info = sga_describe(torch, x, w, axis, direction, direction > 0)
+                info = S.sga_describe(x, w, axis, direction, direction > 0)
                 if not info["vectorised"] or info["local_bytes"]:
                     raise AssertionError(f"K1 at {(N, D, H, W)} {dtype}: element-wise or spilled: {info}")
             log(f"  sga training block {(N, D, H, W)} {str(dtype)[6:]}: vectorised staging in all 4 directions")
@@ -444,9 +429,18 @@ def profile_forward(torch, forward, tag: str = "[5] profile of one forward") -> 
         log(f"  {ms:8.2f} ms  x{count:<4d} {key[:110]}")
 
 
+def sga_bwd_launch_floor_ms(x, accumulate: bool) -> float:
+    """The traffic floor of one K3 launch: x, A, gbar and 5 weight planes
+    read, dx and 5 dw planes written (dx read first when accumulating),
+    each once, over the HBM rate."""
+    N, D, H, W = x.shape
+    nbytes = ((4 + accumulate) * x.numel() + 10 * N * H * W) * x.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def phase_sga_bwd(torch, gen):
     """K3 at the training path's shapes; returns the JSON entry (full-res
-    bf16, one launch)."""
+    bf16, one storing launch of direction 0, along W)."""
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
@@ -457,31 +451,53 @@ def phase_sga_bwd(torch, gen):
         x32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
         w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
         g32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
+        p32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
-            x, w, gbar = x32.to(dtype), w32.to(dtype), g32.to(dtype)
+            x, w, gbar, prev = x32.to(dtype), w32.to(dtype), g32.to(dtype), p32.to(dtype)
             tag = f"sga_bwd {label} {tuple(x.shape)} {str(dtype)[6:]}"
             err = 0.0
             a = [S.sga_sweep_kernel(x, w, ax, rev, direction=k) for k, (ax, rev) in enumerate(S.DIRECTIONS)]
-            for direction, (axis, reverse) in enumerate(S.DIRECTIONS):
-                wk = w[:, direction].contiguous()
-                got_dx, got_dw = S.sga_sweep_bwd_kernel(x, wk, a[direction], gbar, axis, reverse)
-                ref_dx, ref_dw = S.sga_sweep_bwd_plain(x, wk, a[direction], gbar, axis, reverse)
-                name = f"{tag} sweep {axis}{'-rev' if reverse else ''}"
-                err = max(err, compare(torch, f"{name} dx", got_dx, ref_dx, summed=True))
-                err = max(err, compare(torch, f"{name} dw", got_dw, ref_dw, summed=True))
-                del got_dx, got_dw, ref_dx, ref_dw
-                one_ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_kernel(x, wk, a[direction], gbar, axis, reverse), reps=5)
-                log(f"    one launch: {one_ms:.3f} ms")
             dw = torch.empty_like(w)
+            for direction, (axis, reverse) in enumerate(S.DIRECTIONS):
+                name = f"{tag} sweep {axis}{'-rev' if reverse else ''}"
+                wk = w[:, direction]
+                # The plain version on the inputs widened to f32: its dx and dw
+                # before the rounding to dtype, which the accumulating launch
+                # adds to the old dx in f32 and rounds once.
+                ref_dx, ref_dw = S.sga_sweep_bwd_plain(
+                    x.float(), wk.float(), a[direction].float(), gbar.float(), axis, reverse)
+                got_dx, _ = S.sga_sweep_bwd_kernel(x, w, a[direction], gbar, axis, reverse,
+                                                   direction=direction, dw=dw)
+                err = max(err, compare(torch, f"{name} dx", got_dx, ref_dx.to(dtype), summed=True))
+                err = max(err, compare(torch, f"{name} dw", dw[:, direction], ref_dw.to(dtype), summed=True))
+                got_dx = S.sga_sweep_bwd_kernel(x, w, a[direction], gbar, axis, reverse,
+                                                direction=direction, dx=prev.clone(), dw=dw)[0]
+                compare(torch, f"{name} dx accumulating", got_dx, (prev.float() + ref_dx).to(dtype),
+                        summed=True)
+                del got_dx, ref_dx, ref_dw
+                acc = torch.zeros_like(x)
+                for accumulate in (False, True):
+                    ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_kernel(
+                        x, w, a[direction], gbar, axis, reverse, direction=direction,
+                        dx=acc if accumulate else None, dw=dw), reps=5)
+                    info = S.sga_bwd_describe(x, w, axis, direction, accumulate)
+                    log(f"    {axis}{'-rev' if reverse else ''} one launch "
+                        f"{'accumulating' if accumulate else 'storing'}: {ms:.3f} ms, launch floor "
+                        f"{sga_bwd_launch_floor_ms(x, accumulate):.4f} ms; {describe_line(info)}")
+                    if not info["vectorised"] or info["local_bytes"]:
+                        raise AssertionError(f"{name}: K3 staged element-wise or spilled: {info}")
+                    if direction == 0 and not accumulate:
+                        ms_w0 = ms
+                del acc
 
-            def four():
+            def four():  # the training step's order: direction 0 stores, 1-3 accumulate
                 dx = None
                 for k, (ax, rev) in enumerate(S.DIRECTIONS):
                     dx, _ = S.sga_sweep_bwd_kernel(x, w, a[k], gbar, ax, rev, direction=k, dx=dx, dw=dw)
 
             four_ms = cuda_ms(torch, four, reps=5)
+            four_floor = sga_bwd_launch_floor_ms(x, False) + 3 * sga_bwd_launch_floor_ms(x, True)
             w0 = w[:, 0].contiguous()
-            ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_kernel(x, w0, a[0], gbar, "w", False), reps=5)
             plain_ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_plain(x, w0, a[0], gbar, "w", False), reps=1)
             numel, plane = x.numel(), N * H * W
             # One launch reads x, A and gbar and 5 weight planes, writes dx and dw.
@@ -489,19 +505,20 @@ def phase_sga_bwd(torch, gen):
             flops = 25 * numel  # g, dx, 5 products summed over d, the 4-term carry
             bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
-            log(f"  {tag}: kernel {ms:.3f} ms per launch (W sweep), {four_ms:.3f} ms for the 4 "
-                f"directions of one block; plain {plain_ms:.3f} ms per launch; bound {bound_ms:.3f} ms "
-                f"per launch ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            log(f"  {tag}: kernel {ms_w0:.3f} ms per storing W launch, {four_ms:.3f} ms for the 4 "
+                f"directions of one block (their floor {four_floor:.3f} ms); plain {plain_ms:.3f} ms "
+                f"per launch; bound {bound_ms:.3f} ms per launch ({by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP)")
             if label == "full" and dtype == torch.bfloat16:
                 entry = {
                     "name": "sga_bwd", "route": "cuda",
                     "source": "ganet_tpu_torch/csrc/sga_bwd.cu",
                     "replaces": "ganet_tpu/ops/sga_pallas.py:228",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err, "ms": ms_w0, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
                 }
-            del x, w, gbar, a, dw
-        del x32, w32, g32
+            del x, w, gbar, prev, a, dw
+        del x32, w32, g32, p32
     return entry
 
 

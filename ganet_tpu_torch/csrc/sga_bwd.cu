@@ -20,43 +20,115 @@
 // (N, 5, H, W) for this direction, read and written at a caller-given
 // per-n stride so that one (N, 4, 5, H, W) tensor serves all four
 // directions.  With `accumulate` set, dx is added to the existing dx (the
-// sum over directions) instead of stored.
+// sum over directions) in float32 and rounded once.
 //
-// Bound on this card: bytes.  Per sweep it reads x, A, gbar and the 5
-// weights once and writes dx and dw once, about 25 flops per element
-// against 8-16 bytes moved.  The design is K1's: one block owns one n, a
-// tile of lanes and all D bins and loops over l; the carry stays in
-// registers (each thread owns its bins), g and A' go through shared memory
-// for the d+-1 neighbours, and the sums over d (5 sums, and the max of A'
-// with its tie count as one pair) go through warp shuffles and a per-warp
-// shared array: two barriers a step.
-//  * Lanes contiguous (sweeps along H): 32 lanes x 8 rows of d, each step's
-//    32 lanes of a d row one coalesced access; the next step's x, A', gbar,
-//    weights and (when accumulating) dx are loaded into registers before
-//    the current step's arithmetic.
-//  * Lanes strided (sweeps along W): 8 lanes x 32 rows, the volume staged
-//    through shared memory in chunks of 8 steps read and written along l,
-//    the next chunk's loads in flight during the current chunk's steps
-//    (the cure of K1's uncoalesced W sweeps, PERF.md).  Each thread holds
-//    the next chunk's x, A' and gbar in registers; 8 lanes (not K1's 16)
-//    halve them and the bins a thread owns: 2.35 -> 1.07 ms per bf16 launch
-//    at (64, 64, 80, 176) on an H100 80GB HBM3 at 700 W (4 lanes: 1.47 ms;
-//    chip_smoke.py phase 6).
+// Bound on this card: bytes.  A launch reads x, A, gbar and 5 weight planes
+// and writes dx and 5 dw planes, (4 numel + 10 N H W) elements, and reads
+// dx too when accumulating; about 25 f32 operations an element.  At
+// GANet_deep's training blocks (240x528, batch 2) in bf16 the floors at
+// 3.35 TB/s are 0.143 ms a storing and 0.178 ms an accumulating launch at
+// full res (64, 64, 80, 176), 0.676 ms for a block's 4 directions (one
+// storing, three accumulating), and 0.028 / 0.034 / 0.131 ms at half res
+// (96, 32, 40, 88); in f32 twice as much.  The recurrence is sequential in
+// l; the parallelism is the columns, one (n, m) position across the sweep
+// (m = w for sweeps along H, m = h along W).
+//
+// Design: sga_fwd.cu's, applied to the transposed recurrence.
+//  * A column's carry c lives in f32 registers over a group of G lanes of
+//    one warp, B bins a lane (lane g owns d in [g*B, g*B + B)).  A step
+//    turns c into g in place, sums the five products over the lane's bins,
+//    then over the G lanes by xor-shuffles, and turns g into the next c in
+//    place, carrying the old g(d-1) in one register; g(d+-1) across a lane
+//    boundary is one shuffle each.  max_d A' is an in-lane max plus
+//    xor-shuffles, or one `redux.sync` on an order-preserving integer image
+//    when G = 32; the tie count is the lanes' counts of their own maximum,
+//    where that equals the column's, summed (one `redux.sync` at G = 32).
+//    A lane keeps a bit mask of the bins at its own maximum, so the
+//    indicator e needs no second read of A'.
+//  * Along W (G = 32) the five sums use a reduce-scatter butterfly over 8
+//    slots: offsets 1, 2, 4 halve the slots a lane holds (4 + 2 + 1
+//    shuffles, the two empty slots of the first level need none), offsets
+//    8 and 16 add the one left, so that lane k holds dw[k], the lane that
+//    writes it; one more shuffle broadcasts sum_d g from lane 4.
+//  * Each warp stages its own inputs into its own ring of shared memory by
+//    asynchronous copies ahead of use, and waits on them with
+//    `cp.async.wait_group` plus `__syncwarp`.  Warps never wait on each
+//    other: no block barrier, and a block is one warp.  dx and dw leave as
+//    whole rows from the ring.  Accumulating, the old dx is added in f32
+//    at the step that makes dx and rounded once.
+//  * Sweeps along H (l = h): A' is the A row at l -+ 1, as aligned as x.
+//    G and B as in sga_fwd.cu (2 lanes x 32 bins at D = 64, 16 columns a
+//    warp: 32-byte bf16 rows); a stage is one step of x, A', gbar, the old
+//    dx when accumulating and the 5 weight rows, copied and stored 16
+//    bytes at a time; dx goes over the consumed gbar (only the lane that
+//    owns a bin reads or writes it), dw into 5 rows of its own (every lane
+//    of a column reads the weights); 2 steps in the ring storing, 4
+//    accumulating.
+//  * Sweeps along W (l = w): one column a warp, bins over the 32 lanes
+//    (B = 1, 2 or 4, bin row (d % B) * 32 + d / B).  A stage holds a run
+//    of 128 bytes (64 bf16 or 32 f32 steps) of every row of x and A' and
+//    of the 5 weight rows, at a pitch of 132 bytes (33 words, odd: the
+//    lanes' reads down the rows hit 32 banks), copied 4 bytes a lane, 2
+//    stages; dx goes out over the consumed x.  gbar and the old dx are not
+//    staged: each of their rows is read by the one lane that owns its bin,
+//    so that lane loads its own bins' rows straight into registers, 8
+//    steps at a time (4 at B = 4), by 16-byte loads where the rows allow,
+//    one chunk ahead of use.  A stage so holds two volumes for both
+//    launches, where staging every input took three storing and four
+//    accumulating.  A' at step l is A at l -+ 1, one element off x's run:
+//    A's run is staged one 4-byte unit wider on the side of the shift, so
+//    that every copy stays a whole aligned unit; a unit outside the volume
+//    is not copied and never read (only the sweep's first position would
+//    read it, and that step reads no A').
+//  * Instructions, not bytes, bounded the first build (about 4,000 SASS
+//    instructions a step along H at D = 64, from cuobjdump): where every
+//    lane's bins lie in [0, D) (D = G * B, warp-uniform; the model's D = 64
+//    and 32) no bin is guarded, the lane maximum is kept without branches,
+//    and each lane copies and stores a fixed slice of fixed rows with
+//    pointer increments (along W by 32-bit shared addresses).
+//  * Alignment: vectorised staging (16-byte copies and stores along H,
+//    4-byte along W) where x, A, gbar, dx, w, dw and every row start allow,
+//    as at every shape of the model's paths; element-wise (`ld.global` ->
+//    `st.shared`, element stores and loads) otherwise.  In the gradient
+//    walk of a forward sweep the first stage met along W is the ragged
+//    tail: steps outside [0, L) are never run and never touch the carry.
+//  * Measured on an H100 80GB HBM3 at 700 W with chip_smoke.py phase 6 on
+//    edited copies of this source, in turns, over three calls that each
+//    ran the layout of every input staged with 64-byte runs as well (its
+//    block 1.946-1.963 ms in all three).  Full-res bf16, ms a storing /
+//    accumulating W launch, and a block's 4 directions.  Every input
+//    staged, three volumes a stage (four accumulating): 32-byte runs
+//    0.633 / 0.749, 64-byte 0.502 / 0.611 (block 1.948), 128-byte 0.622 /
+//    0.826 (shared memory per column bounds the columns in flight).  gbar
+//    and the old dx in registers, 8 steps a chunk: 32-byte runs 0.751 /
+//    1.098, 64-byte 0.485 / 0.705 (block 2.025), 64-byte with 3 stages
+//    0.505 / 0.670, 128-byte 0.462-0.466 / 0.573-0.577 (block
+//    1.887-1.898): this layout, 3 % faster than the staged 64-byte one at
+//    full res in bf16, 7 % at half res in bf16 (block 0.396-0.398 against
+//    0.421-0.427) and 9 % in f32 (0.532-0.535 against 0.581-0.585), level
+//    at full res in f32 (2.602-2.624 against 2.612-2.623).  16 steps a
+//    chunk in bf16: block 2.073 / 2.076.  Along H, 3 steps in the ring for
+//    both launches: 0.348 / 0.466, against 0.293 / 0.450 with 2 and 4.  A
+//    block's 4 directions took 4.348 ms in the previous design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanesH = 32;  // lanes per block, sweeps along H
-constexpr int kLanesW = 8;   // lanes per block, sweeps along W
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;    // steps per staged chunk (sweeps along W)
-constexpr int kPitch = 10;   // padded step-row pitch of the staged chunks
-constexpr int kRed = 7;      // per-warp partials: 5 sums, max of A', tie count
-constexpr size_t kMaxShared = 232448;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCopy = 16;  // bytes of one copy along H
+
+// Steps in a warp's ring along H, for a storing launch and for an
+// accumulating one; stages in a warp's ring and bytes of a row a stage
+// holds along W (see "Measured" in the header).
+constexpr int kStagesH[2] = {2, 4};
+constexpr int kStagesW = 2;
+constexpr int kRunW = 128;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -66,368 +138,635 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// Shared memory of the step: gs, as (D, LANES) f32 hold g and A' of this
-// step; red (kRed, kWarps, LANES) the per-warp partials.
-template <int LANES>
-struct StepShared {
-  float* gs;
-  float* as;
-  float* red;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {  // dst: shared address
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The max of v over the warp: one redux.sync on the floats' order-preserving
+// integer image (negative floats have their magnitude bits flipped).
+__device__ __forceinline__ float warp_max(float v) {
+  int i = __float_as_int(v);
+  i ^= (i >> 31) & 0x7fffffff;
+  i = __reduce_max_sync(kFull, i);
+  i ^= (i >> 31) & 0x7fffffff;
+  return __int_as_float(i);
+}
+
+// The sums over the warp of v0..v4, reduce-scattered: lane k (and k + 8,
+// k + 16, k + 24) returns the sum of v_k for k < 5, 0 for k = 5, 6, 7.
+// Offsets 1, 2, 4 each halve the slots a lane holds; 8 and 16 add the one
+// left.  8 shuffles.
+__device__ __forceinline__ float warp_sum5(float v0, float v1, float v2, float v3, float v4,
+                                           int lane) {
+  const bool b0 = lane & 1, b1 = lane & 2, b2 = lane & 4;
+  // Slot pairs (0, 1), (2, 3), (4, 5); (6, 7) are empty.  Keep slot 2p + b0.
+  const float r0 = (b0 ? v1 : v0) + __shfl_xor_sync(kFull, b0 ? v0 : v1, 1);
+  const float r1 = (b0 ? v3 : v2) + __shfl_xor_sync(kFull, b0 ? v2 : v3, 1);
+  const float r2 = (b0 ? 0.f : v4) + __shfl_xor_sync(kFull, b0 ? v4 : 0.f, 1);
+  // r0, r1 hold slots b0, b0 + 2; r2 and the empty r3 slots b0 + 4, b0 + 6.
+  const float q0 = (b1 ? r1 : r0) + __shfl_xor_sync(kFull, b1 ? r0 : r1, 2);
+  const float q1 = (b1 ? 0.f : r2) + __shfl_xor_sync(kFull, b1 ? r2 : 0.f, 2);
+  // q0, q1 hold slots b0 + 2 b1 and that + 4.
+  float t = (b2 ? q1 : q0) + __shfl_xor_sync(kFull, b2 ? q0 : q1, 4);
+  t += __shfl_xor_sync(kFull, t, 8);
+  t += __shfl_xor_sync(kFull, t, 16);
+  return t;
+}
+
+// Where the (max, count) of a column's A' comes from: a lane's own maximum
+// lm over its bins, the number lc of its bins at lm, and the bit mask of
+// those bins; updated without branches.
+struct LaneMax {
+  float lm;
+  unsigned lc, mask;
+  __device__ __forceinline__ void add(float v, int i) {
+    const bool gt = v > lm, eq = v == lm;
+    lc = gt ? 1u : lc + eq;
+    mask = gt ? 1u << i : (eq ? mask | 1u << i : mask);
+    lm = gt ? v : lm;
+  }
 };
 
-// One backward step for this thread's bins d = ty + q * rows.  In: x, A',
-// gbar and the 5 weights of this step, the carry c.  Out: dx (this step's
-// w0 g, or g at the sweep's first step), the new carry, and, for threads
-// with ty < 5, dw[ty] of their lane (0 at the first step).
-template <int LANES, int DPT>
-__device__ __forceinline__ void step(const float (&xv)[DPT], const float (&av)[DPT],
-                                     const float (&bv)[DPT], const float (&wv)[5], bool first,
-                                     StepShared<LANES> sh, int D, int tx, int ty,
-                                     float (&c)[DPT], float (&dxv)[DPT], float& dwv) {
-  constexpr int kRowsB = kThreads / LANES;
-  float g[DPT];
+// One gradient step of a column for this lane's bins d = dlo + i (B bins),
+// the column spread over G lanes (g = this lane's index in the group).
+// c holds the carry and becomes the next one.  FULL: every lane's bins lie
+// in [0, D) (D == G * B, warp-uniform), and no bin is guarded.  Accessors:
+// gb(i), xs(i), ap(i) give gbar, x and A' at bin i (only called for
+// d < D); an(d) gives A' at any bin d in [0, D); old(i) the old dx;
+// put_dx(i, v) stores dx; put_dw(k, v) stores dw[k] (called by the lanes
+// that write dw).  wv are the step's 5 weights.
+template <int G, int B, bool FULL, typename Gb, typename Xs, typename Ap, typename An,
+          typename Old, typename PutDx, typename PutDw>
+__device__ __forceinline__ void grad_step(float (&c)[B], int g, int lane, int D, bool first,
+                                          bool accumulate, const float (&wv)[5], Gb gb, Xs xs,
+                                          Ap ap, An an, Old old, PutDx put_dx, PutDw put_dw) {
+  const int dlo = g * B;
+  auto in = [&](int i) { return FULL || dlo + i < D; };
 #pragma unroll
-  for (int q = 0; q < DPT; ++q) {
-    const int d = ty + q * kRowsB;
-    g[q] = bv[q] + c[q];
-    if (d < D) {
-      sh.gs[d * LANES + tx] = g[q];
-      sh.as[d * LANES + tx] = av[q];
+  for (int i = 0; i < B; ++i)
+    if (in(i)) c[i] += gb(i);  // c is now g (0 at bins >= D)
+  if (first) {  // the sweep's first position: dx = g, dw = 0, the walk ends
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+      if (in(i)) put_dx(i, accumulate ? c[i] + old(i) : c[i]);
+    if (G == 32) {
+      if (lane < 5) put_dw(lane, 0.f);
+    } else {
+      for (int k = g; k < 5; k += G) put_dw(k, 0.f);
     }
+    return;
   }
-  __syncthreads();  // g and A' of this step are visible
-
+  // The lane's partial sums and its maximum of A'.
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, sg = 0.f;
-  float mx = -CUDART_INF_F, cnt = 0.f;
-  float gup[DPT], gdn[DPT];
+  static_assert(B <= 32, "a lane's bins fit one mask word");
+  LaneMax m{-CUDART_INF_F, 0u, 0u};
+  if (FULL || dlo < D) {
+    float aprev = dlo > 0 ? an(dlo - 1) : 0.f;  // A' at d - 1
 #pragma unroll
-  for (int q = 0; q < DPT; ++q) {
-    const int d = ty + q * kRowsB;
-    gup[q] = 0.f;
-    gdn[q] = 0.f;
-    if (d < D) {
-      const float am1 = d > 0 ? sh.as[(d - 1) * LANES + tx] : 0.f;
-      const float ap1 = d + 1 < D ? sh.as[(d + 1) * LANES + tx] : 0.f;
-      gdn[q] = d > 0 ? sh.gs[(d - 1) * LANES + tx] : 0.f;
-      gup[q] = d + 1 < D ? sh.gs[(d + 1) * LANES + tx] : 0.f;
-      s0 += g[q] * xv[q];
-      s1 += g[q] * av[q];
-      s2 += g[q] * am1;
-      s3 += g[q] * ap1;
-      sg += g[q];
-      if (av[q] > mx) {
-        mx = av[q];
-        cnt = 1.f;
-      } else if (av[q] == mx) {
-        cnt += 1.f;
+    for (int i = 0; i < B; ++i) {
+      if (in(i)) {
+        const float ai = ap(i);
+        s0 += c[i] * xs(i);
+        s1 += c[i] * ai;
+        s2 += c[i] * aprev;
+        if (i > 0) s3 += c[i - 1] * ai;
+        sg += c[i];
+        m.add(ai, i);
+        aprev = ai;
       }
     }
+    if (dlo + B < D) s3 += c[B - 1] * an(dlo + B);
   }
-  // A warp spans 32 / LANES rows: fold them, then one partial per warp.
+  float M, SG, dwk;  // max_d A', sum_d g, and dw[k] on the lanes that write it
+  unsigned cnt;
+  if (G == 32) {
+    M = warp_max(m.lm);
+    cnt = __reduce_add_sync(kFull, m.lm == M ? m.lc : 0u);
+    dwk = warp_sum5(s0, s1, s2, s3, sg, lane);
+    SG = __shfl_sync(kFull, dwk, 4);
+    if (lane == 4) dwk *= M;
+  } else {
+    M = m.lm;
 #pragma unroll
-  for (int off = LANES; off < 32; off *= 2) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    s3 += __shfl_xor_sync(0xffffffffu, s3, off);
-    sg += __shfl_xor_sync(0xffffffffu, sg, off);
-    const float omx = __shfl_xor_sync(0xffffffffu, mx, off);
-    const float ocnt = __shfl_xor_sync(0xffffffffu, cnt, off);
-    const float m = fmaxf(mx, omx);
-    cnt = (mx == m ? cnt : 0.f) + (omx == m ? ocnt : 0.f);
-    mx = m;
-  }
-  const int lin = ty * LANES + tx;
-  if (lin % 32 < LANES) {
-    const int wp = lin / 32;
-    float* r = sh.red + wp * LANES + tx;
-    constexpr int kS = kWarps * LANES;
-    r[0 * kS] = s0;
-    r[1 * kS] = s1;
-    r[2 * kS] = s2;
-    r[3 * kS] = s3;
-    r[4 * kS] = sg;
-    r[5 * kS] = mx;
-    r[6 * kS] = cnt;
-  }
-  __syncthreads();  // the partials are visible
-
-  // Every thread needs sum_d g, the max of A' and its tie count; a thread
-  // of row ty < 4 also needs the sum dw[ty] (dw[4] is (sum_d g) max A').
-  constexpr int kS = kWarps * LANES;
-  float SG = 0.f, SK = 0.f, MX = -CUDART_INF_F, CNT = 0.f;
+    for (int off = 1; off < G; off *= 2) {
+      s0 += __shfl_xor_sync(kFull, s0, off);
+      s1 += __shfl_xor_sync(kFull, s1, off);
+      s2 += __shfl_xor_sync(kFull, s2, off);
+      s3 += __shfl_xor_sync(kFull, s3, off);
+      sg += __shfl_xor_sync(kFull, sg, off);
+      M = fmaxf(M, __shfl_xor_sync(kFull, M, off));
+    }
+    cnt = m.lm == M ? m.lc : 0u;
 #pragma unroll
-  for (int wp = 0; wp < kWarps; ++wp) {
-    const float* r = sh.red + wp * LANES + tx;
-    SG += r[4 * kS];
-    if (ty < 4) SK += r[ty * kS];
-    const float omx = r[5 * kS], ocnt = r[6 * kS];
-    const float m = fmaxf(MX, omx);
-    CNT = (MX == m ? CNT : 0.f) + (omx == m ? ocnt : 0.f);
-    MX = m;
+    for (int off = 1; off < G; off *= 2) cnt += __shfl_xor_sync(kFull, cnt, off);
+    SG = sg;
+    dwk = 0.f;
   }
-  dwv = 0.f;
-  if (!first && ty < 5) dwv = ty < 4 ? SK : SG * MX;
-  const float share = wv[4] * SG / fmaxf(CNT, 1.f);
+  // dw, from the lanes that hold it.
+  if (G == 32) {
+    if (lane < 5) put_dw(lane, dwk);
+  } else {
+    for (int k = g; k < 5; k += G)
+      put_dw(k, k == 0 ? s0 : k == 1 ? s1 : k == 2 ? s2 : k == 3 ? s3 : sg * M);
+  }
+  // g(d - 1) below the lane's first bin and g(d + 1) above its last.
+  float gdn = 0.f, gup = 0.f;
+  if (G > 1) {
+    gdn = __shfl_up_sync(kFull, c[B - 1], 1);
+    gup = __shfl_down_sync(kFull, c[0], 1);
+    if (g == 0) gdn = 0.f;
+    if (g == G - 1) gup = 0.f;
+  }
+  // The even split of w4 (sum_d g) over the tied maxima.  A fast division
+  // (one reciprocal, no slow-path call): the count is an exact small
+  // integer and the share within 2 ulps of the plain version's
+  // (w4 sum_d g) (1 / count).
+  const float share = __fdividef(wv[4] * SG, (float)max(cnt, 1u));
+  const unsigned at_max = m.lm == M ? m.mask : 0u;
+  float prev = gdn;  // g at d - 1
 #pragma unroll
-  for (int q = 0; q < DPT; ++q) {
-    dxv[q] = first ? g[q] : wv[0] * g[q];
-    c[q] = first ? 0.f
-                 : wv[1] * g[q] + wv[2] * gup[q] + wv[3] * gdn[q] + (av[q] == MX ? share : 0.f);
+  for (int i = 0; i < B; ++i) {
+    const float cur = c[i];
+    const float next = i + 1 < B ? c[i + 1] : gup;
+    if (in(i)) {
+      const float v = wv[0] * cur;
+      put_dx(i, accumulate ? v + old(i) : v);
+      c[i] = wv[1] * cur + wv[2] * next + wv[3] * prev + ((at_max >> i) & 1u ? share : 0.f);
+    }
+    prev = cur;
   }
 }
 
-// Sweep along H: lanes on the contiguous W axis, l = h.  Shared memory:
-// gs, as and red, f32.
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
+// Sweep along H (l = h).  A warp owns TM = 32 / G columns adjacent along W.
+// Its ring holds STAGES steps; a step's stage is, in rows of TM elements
+// of T, DP rows each of x, A', gbar (dx on the way out) and, accumulating,
+// the old dx (bin d at row (d % B) * G + d / B of its volume), then the 5
+// weight rows and the 5 dw rows.
+template <typename T, int G, int B, int STAGES>
+__global__ void __launch_bounds__(32)
 sga_bwd_h_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ a,
-                 const T* __restrict__ gbar, T* __restrict__ dx, T* __restrict__ dw, int D,
-                 int H, int W, long long w_nstride, int reverse, int accumulate) {
-  constexpr int kRowsB = kThreads / kLanesH;
-  extern __shared__ float smem[];
-  StepShared<kLanesH> sh{smem, smem + D * kLanesH, smem + 2 * D * kLanesH};
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int m = blockIdx.x * kLanesH + tx;
-  const bool active = m < W;
+                 const T* __restrict__ gbar, T* __restrict__ dx, T* __restrict__ dw, int N, int D,
+                 int H, int W, long long w_nstride, int reverse, int accumulate, int vec) {
+  constexpr int TM = 32 / G;              // columns a warp owns
+  constexpr int DP = G * B;               // bin rows of a volume
+  constexpr int EPC = kCopy / sizeof(T);  // elements of one 16-byte copy
+  static_assert(TM % EPC == 0, "a row is whole 16-byte copies");
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tiles = (W + TM - 1) / TM;
+  const int warp = blockIdx.x;
+  if (warp >= N * tiles) return;
+  const int lane = threadIdx.x, cm = lane / G, g = lane % G;
+  const int n = warp / tiles, m0 = (warp % tiles) * TM;
   const long long plane = (long long)H * W;
-  const long long base = (long long)blockIdx.y * D * plane + (active ? m : 0);
-  const T* xn = x + base;
-  const T* an = a + base;
-  const T* bn = gbar + base;
-  T* dxn = dx + base;
-  const T* wn = w + blockIdx.y * w_nstride + (active ? m : 0);
-  T* dwn = dw + blockIdx.y * w_nstride + (active ? m : 0);
+  const int vols = 3 + accumulate;     // volumes staged
+  const int wrow = vols * DP;          // first weight row of a stage
+  const int stage = (wrow + 10) * TM;  // elements of a stage
+  T* ring = reinterpret_cast<T*>(smem);
   const int first_l = reverse ? H - 1 : 0;
+  auto binrow = [&](int d) { return (d % B) * G + d / B; };
+  // This lane's share of a stage's copies and stores: the elements [col,
+  // col + per) of rows row0, row0 + rstep, ... (whole 16-byte copies when
+  // vectorised, single elements otherwise).
+  const int per = vec ? EPC : 1, cpr = TM / per;
+  const int col = (lane % cpr) * per, row0 = lane / cpr, rstep = 32 / cpr;
+  const bool live = m0 + col < W;  // whole copies: W % EPC == 0 when vectorised
+  auto vol = [&](int v) -> const T* { return v == 0 ? x : v == 1 ? a : v == 2 ? gbar : dx; };
+  const long long base = (long long)n * D * plane + m0 + col;
+  const T* const wsrc = w + n * w_nstride + m0 + col;
 
-  // Registers of one step: x, A', gbar, old dx and the 5 weights;
-  // `c` in use, `n` in flight.
-  float xc[DPT], ac[DPT], bc[DPT], oc[DPT], wc[5];
-  float xnx[DPT], anx[DPT], bnx[DPT], onx[DPT], wnx[5];
-  auto load = [&](int l, float (&xv)[DPT], float (&av)[DPT], float (&bv)[DPT],
-                  float (&ov)[DPT], float (&wv)[5]) {
-    const long long off = (long long)l * W;
-    const bool has_prev = l != first_l;
-    const long long aoff = (long long)(reverse ? l + 1 : l - 1) * W;
-#pragma unroll
-    for (int q = 0; q < DPT; ++q) {
-      const int d = ty + q * kRowsB;
-      const bool in = active && d < D;
-      xv[q] = in ? to_f32(xn[d * plane + off]) : 0.f;
-      av[q] = in && has_prev ? to_f32(an[d * plane + aoff]) : 0.f;
-      bv[q] = in ? to_f32(bn[d * plane + off]) : 0.f;
-      ov[q] = in && accumulate ? to_f32(dxn[d * plane + off]) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) wv[k] = active ? to_f32(wn[k * plane + off]) : 0.f;
-  };
-
-  float c[DPT];
-#pragma unroll
-  for (int q = 0; q < DPT; ++q) c[q] = 0.f;
-  // The gradient walks opposite to the forward: l = H-1 .. 0 for a forward
-  // sweep, 0 .. H-1 for a reverse one.
-  load(reverse ? 0 : H - 1, xc, ac, bc, oc, wc);
-  for (int s = 0; s < H; ++s) {
+  // Stage the walk's step s into slot `slot`: each volume's D rows (bin d
+  // to its bin row), then the weights' 5.
+  auto issue = [&](int s, int slot) {
+    if (!live) return;
     const int l = reverse ? s : H - 1 - s;
-    if (s + 1 < H) load(reverse ? l + 1 : l - 1, xnx, anx, bnx, onx, wnx);
-    float dxv[DPT], dwv;
-    step<kLanesH, DPT>(xc, ac, bc, wc, l == first_l, sh, D, tx, ty, c, dxv, dwv);
-    const long long off = (long long)l * W;
-#pragma unroll
-    for (int q = 0; q < DPT; ++q) {
-      const int d = ty + q * kRowsB;
-      if (active && d < D) dxn[d * plane + off] = from_f32<T>(accumulate ? oc[q] + dxv[q] : dxv[q]);
+    T* st = ring + slot * stage + col;
+    auto copy = [&](T* to, const T* from) {
+      if (vec)
+        cp_async16(to, from);
+      else
+        *to = *from;
+    };
+    for (int v = 0; v < vols; ++v) {
+      if (v == 1 && l == first_l) continue;  // the sweep's first position reads no A'
+      const int lv = v == 1 ? (reverse ? l + 1 : l - 1) : l;  // A' is A one step back
+      const T* from = vol(v) + base + (long long)lv * W + row0 * plane;
+      T* to = st + v * DP * TM;
+      for (int d = row0; d < D; d += rstep, from += rstep * plane) copy(to + binrow(d) * TM, from);
     }
-    if (active && ty < 5) dwn[ty * plane + off] = from_f32<T>(dwv);
+    const T* from = wsrc + (long long)l * W + row0 * plane;
+    for (int k = row0; k < 5; k += rstep, from += rstep * plane) copy(st + (wrow + k) * TM, from);
+  };
+
+  float c[B];
 #pragma unroll
-    for (int q = 0; q < DPT; ++q) {
-      xc[q] = xnx[q];
-      ac[q] = anx[q];
-      bc[q] = bnx[q];
-      oc[q] = onx[q];
+  for (int i = 0; i < B; ++i) c[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) {
+    if (k < H) issue(k, k);
+    cp_async_commit();
+  }
+  const bool full = D == DP;
+#pragma unroll 1
+  for (int s = 0; s < H; ++s) {
+    if (s + STAGES - 1 < H) issue(s + STAGES - 1, (s + STAGES - 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();  // step s of every lane's copies is in the ring
+    const int l = reverse ? s : H - 1 - s;
+    T* st = ring + (s % STAGES) * stage;
+    T* xs = st;
+    T* as = st + DP * TM;
+    T* bs = st + 2 * DP * TM;
+    T* os = st + 3 * DP * TM;
+    T* ws = st + wrow * TM;
+    float wv[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) wv[k] = to_f32(ws[k * TM + cm]);
+    auto at = [&](int i) { return (i * G + g) * TM + cm; };  // this lane's bin i
+    auto step = [&](auto full_tag) {
+      grad_step<G, B, decltype(full_tag)::value>(
+          c, g, lane, D, l == first_l, accumulate, wv,
+          [&](int i) { return to_f32(bs[at(i)]); }, [&](int i) { return to_f32(xs[at(i)]); },
+          [&](int i) { return to_f32(as[at(i)]); },
+          [&](int d) { return to_f32(as[binrow(d) * TM + cm]); },
+          [&](int i) { return to_f32(os[at(i)]); },
+          [&](int i, float v) { bs[at(i)] = from_f32<T>(v); },
+          [&](int k, float v) { ws[(5 + k) * TM + cm] = from_f32<T>(v); });
+    };
+    if (full)
+      step(std::true_type());
+    else
+      step(std::false_type());
+    __syncwarp();  // every lane's dx and dw are in the slot
+    if (live) {
+      T* to = dx + base + (long long)l * W + row0 * plane;
+      for (int r = row0; r < D; r += rstep, to += rstep * plane) {
+        if (vec)
+          *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(bs + binrow(r) * TM + col);
+        else
+          *to = bs[binrow(r) * TM + col];
+      }
+      to = dw + (wsrc - w) + (long long)l * W + row0 * plane;
+      for (int k = row0; k < 5; k += rstep, to += rstep * plane) {
+        if (vec)
+          *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(ws + (5 + k) * TM + col);
+        else
+          *to = ws[(5 + k) * TM + col];
+      }
     }
+    __syncwarp();  // every lane is done with the slot the next step refills
+  }
+  cp_async_wait<0>();
+}
+
+// Element k of a run of T packed in 4-byte words, as f32.
+template <typename T, int CW>
+__device__ __forceinline__ float unpack(const uint32_t (&r)[CW], int k) {
+  if constexpr (sizeof(T) == 4)
+    return __uint_as_float(r[k]);
+  else  // bf16: the element at the lower address is the low half
+    return __uint_as_float(k & 1 ? r[k / 2] & 0xffff0000u : r[k / 2] << 16);
+}
+
+// CH elements of a row of T from element c0 on (c0 a multiple of CH) into
+// words r, none at or past W: 16-byte loads (wide), 4-byte (vec), or one
+// element at a time.
+template <typename T, int CH, int CW>
+__device__ __forceinline__ void load_run(uint32_t (&r)[CW], const T* row, int c0, int W, bool wide,
+                                         bool vec) {
+  constexpr int EPU = 4 / sizeof(T);
+  if (CW % 4 == 0 && wide) {
 #pragma unroll
-    for (int k = 0; k < 5; ++k) wc[k] = wnx[k];
+    for (int q = 0; q < CW / 4; ++q)
+      if (c0 + 4 * q * EPU < W) {
+        const uint4 u = *reinterpret_cast<const uint4*>(row + c0 + 4 * q * EPU);
+        r[4 * q] = u.x, r[4 * q + 1] = u.y, r[4 * q + 2] = u.z, r[4 * q + 3] = u.w;
+      }
+  } else if (vec) {
+#pragma unroll
+    for (int q = 0; q < CW; ++q)
+      if (c0 + q * EPU < W) r[q] = *reinterpret_cast<const uint32_t*>(row + c0 + q * EPU);
+  } else {
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      if (c0 + k >= W) continue;
+      if constexpr (sizeof(T) == 4) {
+        r[k] = *reinterpret_cast<const uint32_t*>(row + c0 + k);
+      } else {
+        const uint32_t h = *reinterpret_cast<const unsigned short*>(row + c0 + k);
+        r[k / 2] = k & 1 ? (r[k / 2] & 0xffffu) | h << 16 : (r[k / 2] & 0xffff0000u) | h;
+      }
+    }
   }
 }
 
-// Sweep along W: lanes on H (W elements apart), l = w, through chunks of
-// kChunk steps staged in shared memory: x, A' and gbar (D rows each; gbar's
-// rows take dx on the way out) and the weights (5 rows; they take dw), each
-// row (kChunk, kPitch) of T indexed [row][step][lane]; then gs, as, red f32.
-template <typename T> __host__ __device__ size_t staged_bytes(int D) {
-  return ((size_t)(3 * D + 5) * kChunk * kPitch * sizeof(T) + 15) / 16 * 16;
-}
-
-__host__ __device__ inline size_t step_bytes(int D, int lanes) {
-  return sizeof(float) * ((size_t)2 * D * lanes + (size_t)kRed * kWarps * lanes);
-}
-
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
+// Sweep along W (l = w): one column (n, h) a warp, bin d = g * B + i on
+// lane g.  The ring holds STAGES stages of S = RUN / elem steps; a stage
+// is rows of S elements at a pitch of P = S + 4 / elem: DP = 32 B rows of
+// x (dx on the way out, over the consumed x), DP rows of A' (its run one
+// 4-byte unit wider), bin d at row (d % B) * 32 + d / B, then 5 weight
+// rows and 5 dw rows.  gbar and, accumulating, the old dx are not staged:
+// each lane loads its own bins' rows into registers, CH steps at a time,
+// one chunk ahead of use.
+template <typename T, int B, int RUN, int STAGES, bool ACC>
+__global__ void __launch_bounds__(32)
 sga_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ a,
-                 const T* __restrict__ gbar, T* __restrict__ dx, T* __restrict__ dw, int D,
-                 int H, int W, long long w_nstride, int reverse, int accumulate) {
-  constexpr int kRowsB = kThreads / kLanesW;
-  constexpr int kTile = kChunk * kLanesW;                   // elements of one row
-  constexpr int kPerX = DPT * kRowsB * kTile / kThreads;  // per thread, per D-row array
-  constexpr int kPerW = (5 * kTile + kThreads - 1) / kThreads;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  T* as_ = xs + (size_t)D * kChunk * kPitch;
-  T* bs = as_ + (size_t)D * kChunk * kPitch;
-  T* ws = bs + (size_t)D * kChunk * kPitch;
-  float* f = reinterpret_cast<float*>(smem_raw + staged_bytes<T>(D));
-  StepShared<kLanesW> sh{f, f + D * kLanesW, f + 2 * D * kLanesW};
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kLanesW + tx;
-  const int h0 = blockIdx.x * kLanesW;
+                 const T* __restrict__ gbar, T* __restrict__ dx, T* __restrict__ dw, int N, int D,
+                 int H, int W, long long w_nstride, int reverse, int vec, int wide) {
+  constexpr int S = RUN / sizeof(T);  // steps a stage
+  constexpr int U = RUN / 4;          // 4-byte units of a run
+  constexpr int EPU = 4 / sizeof(T);  // elements of a unit
+  constexpr int P = S + EPU;          // row pitch, elements: U + 1 words
+  constexpr int DP = 32 * B;          // bin rows of a volume
+  constexpr int CH = B == 4 ? 4 : 8;  // steps of a chunk held in registers
+  constexpr int CW = CH * sizeof(T) / 4;  // words of a chunk of a row
+  static_assert(U <= 32 && 32 % U == 0, "a warp copies whole rows");
+  static_assert(S % CH == 0, "a stage is whole chunks");
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int column = blockIdx.x;
+  if (column >= N * H) return;
+  const int g = threadIdx.x;
+  const int n = column / H, h = column % H;
   const long long plane = (long long)H * W;
-  const long long nbase = (long long)blockIdx.y * D * plane;
-  const T* xn = x + nbase;
-  const T* an = a + nbase;
-  const T* bn = gbar + nbase;
-  T* dxn = dx + nbase;
-  const T* wn = w + blockIdx.y * w_nstride;
-  T* dwn = dw + blockIdx.y * w_nstride;
-  const int nchunks = (W + kChunk - 1) / kChunk;
+  const long long base = (long long)n * D * plane + (long long)h * W;
+  const T* const wsrc = w + n * w_nstride + (long long)h * W;
+  constexpr int wrow = 2 * DP;               // first weight row of a stage
+  constexpr int stage = (wrow + 10) * P;     // elements of a stage
+  T* ring = reinterpret_cast<T*>(smem);
+  const int nst = (W + S - 1) / S;
+  const int nq = (W + CH - 1) / CH;
   const int first_l = reverse ? W - 1 : 0;
-  const int ashift = reverse ? 1 : -1;  // A' sits at l + ashift
-  const T zero = from_f32<T>(0.f);
-  // The gradient walks opposite to the forward: chunks (and steps within
-  // them) in descending l for a forward sweep, ascending for a reverse one.
-  auto chunk_l0 = [&](int ci) { return (reverse ? ci : nchunks - 1 - ci) * kChunk; };
+  // The walk runs opposite to the forward: stages, chunks and steps in
+  // descending l for a forward sweep, ascending for a reverse one.
+  auto first_col = [&](int t) { return (reverse ? t : nst - 1 - t) * S; };
+  auto chunk_col = [&](int q) { return (reverse ? q : nq - 1 - q) * CH; };
+  // A's run starts one unit before x's for a forward sweep (A' = A at
+  // l - 1), at x's for a reverse one (A' = A at l + 1, its run one unit
+  // longer); A' of step j of a stage is element j + ash of A's row.
+  const int a_lead = reverse ? 0 : EPU;
+  const int ash = reverse ? 1 : EPU - 1;
+  auto binrow = [&](int d) { return (d % B) * 32 + d / B; };
+  // This lane's share of a vectorised stage: unit e / EPU of rows row0,
+  // row0 + rstep, ...
+  const int e = (g % U) * EPU, row0 = g / U;
+  constexpr int rstep = 32 / U;
 
-  // Element e of a (rows, kChunk, kLanesW) tile -> (row, step j, lane),
-  // with j fastest so that neighbouring threads read neighbouring addresses.
-  T px[kPerX], pa[kPerX], pb[kPerX], pw[kPerW];
-  auto fetch = [&](int ci) {  // chunk ci (in gradient order) into registers
-    const int l0 = chunk_l0(ci);
-    const int nl = min(kChunk, W - l0);
-#pragma unroll
-    for (int i = 0; i < kPerX; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, d = e / kTile;
-      const bool in = d < D && j < nl && h0 + lane < H;
-      const long long g = d * plane + (long long)(h0 + lane) * W + l0 + j;
-      const int la = l0 + j + ashift;
-      px[i] = in ? xn[g] : zero;
-      pa[i] = in && la >= 0 && la < W ? an[g + ashift] : zero;
-      pb[i] = in ? bn[g] : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < kPerW; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, k = e / kTile;
-      const bool in = k < 5 && j < nl && h0 + lane < H;
-      pw[i] = in ? wn[k * plane + (long long)(h0 + lane) * W + l0 + j] : zero;
+  // Stage t (in walk order) into slot `slot`: x's and A's D rows (bin d to
+  // its bin row), then the weights' 5.  Units (elements) of a row outside
+  // [0, W) are not copied.  Vectorised copies address shared memory by its
+  // 32-bit shared address.
+  const unsigned sring = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  auto issue = [&](int t, int slot) {
+    const int l0 = first_col(t);
+    T* st = ring + slot * stage;
+    for (int v = 0; v <= 2; ++v) {
+      const bool is_w = v == 2;
+      const int rows = is_w ? 5 : D;
+      const int c0 = v == 1 ? l0 - a_lead : l0;  // the l of a row's element 0
+      const T* from = is_w ? wsrc : (v == 0 ? x : a) + base;
+      T* to = st + v * DP * P;
+      if (vec) {  // a 4-byte unit a lane; W is a multiple of EPU
+        const unsigned sto = sring + (unsigned)((slot * stage + v * DP * P) * sizeof(T));
+        if (c0 + e >= 0 && c0 + e < W) {
+          const T* src = from + row0 * plane + c0 + e;
+          if (is_w) {
+            for (int r = row0; r < 5; r += rstep, src += rstep * plane)
+              cp_async4(sto + (r * P + e) * sizeof(T), src);
+          } else {
+            for (int r = row0; r < D; r += rstep, src += rstep * plane)
+              cp_async4(sto + (binrow(r) * P + e) * sizeof(T), src);
+          }
+        }
+        if (v == 1 && c0 + S >= 0 && c0 + S < W)  // the unit that widens A's run
+          for (int d = g; d < D; d += 32)
+            cp_async4(sto + (binrow(d) * P + S) * sizeof(T), from + d * plane + c0 + S);
+      } else {
+        const int len = v == 1 ? P : S;  // elements of a row
+        for (int q = g; q < rows * len; q += 32) {
+          const int r = q / len, k = q % len;
+          if (c0 + k >= 0 && c0 + k < W) to[(is_w ? r : binrow(r)) * P + k] = from[r * plane + c0 + k];
+        }
+      }
     }
   };
-  auto stash = [&]() {  // registers into shared memory
+
+  // gbar and the old dx of this lane's bins: the chunk in use and the next.
+  const int dlo = g * B;
+  uint32_t gb[B][CW], gbn[B][CW], od[B][CW], odn[B][CW];
 #pragma unroll
-    for (int i = 0; i < kPerX; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, d = e / kTile;
-      if (d < D) {
-        const int idx = (d * kChunk + j) * kPitch + lane;
-        xs[idx] = px[i];
-        as_[idx] = pa[i];
-        bs[idx] = pb[i];
-      }
-    }
+  for (int i = 0; i < B; ++i)
 #pragma unroll
-    for (int i = 0; i < kPerW; ++i) {
-      const int e = tid + i * kThreads;
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, k = e / kTile;
-      if (k < 5) ws[(k * kChunk + j) * kPitch + lane] = pw[i];
+    for (int k = 0; k < CW; ++k) gb[i][k] = gbn[i][k] = od[i][k] = odn[i][k] = 0u;
+  auto fetch = [&](int q) {  // chunk q (in walk order) into gbn, odn
+    const int c0 = chunk_col(q);
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      if (dlo + i >= D) continue;
+      const long long row = base + (long long)(dlo + i) * plane;
+      load_run<T, CH>(gbn[i], gbar + row, c0, W, wide, vec);
+      if (ACC) load_run<T, CH>(odn[i], dx + row, c0, W, wide, vec);
     }
   };
 
-  float c[DPT];
+  float c[B];
 #pragma unroll
-  for (int q = 0; q < DPT; ++q) c[q] = 0.f;
-  fetch(0);
-  stash();
-  __syncthreads();
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int l0 = chunk_l0(ci);
-    const int nl = min(kChunk, W - l0);
-    if (ci + 1 < nchunks) fetch(ci + 1);  // in flight during this chunk's steps
-
-    for (int jj = 0; jj < nl; ++jj) {
-      const int j = reverse ? jj : nl - 1 - jj;
-      float xv[DPT], av[DPT], bv[DPT], wv[5], dxv[DPT], dwv;
+  for (int i = 0; i < B; ++i) c[i] = 0.f;
 #pragma unroll
-      for (int q = 0; q < DPT; ++q) {
-        const int d = ty + q * kRowsB;
-        const int idx = (d * kChunk + j) * kPitch + tx;
-        xv[q] = d < D ? to_f32(xs[idx]) : 0.f;
-        av[q] = d < D ? to_f32(as_[idx]) : 0.f;
-        bv[q] = d < D ? to_f32(bs[idx]) : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < 5; ++k) wv[k] = to_f32(ws[(k * kChunk + j) * kPitch + tx]);
-      step<kLanesW, DPT>(xv, av, bv, wv, l0 + j == first_l, sh, D, tx, ty, c, dxv, dwv);
-      // After the step's second barrier every thread has read this step's
-      // staged values, so dx and dw may take their slots.
-#pragma unroll
-      for (int q = 0; q < DPT; ++q) {
-        const int d = ty + q * kRowsB;
-        if (d < D) bs[(d * kChunk + j) * kPitch + tx] = from_f32<T>(dxv[q]);
-      }
-      if (ty < 5) ws[(ty * kChunk + j) * kPitch + tx] = from_f32<T>(dwv);
-    }
-    __syncthreads();  // dx and dw of the chunk are staged
-
-    for (int e = tid; e < D * kTile; e += kThreads) {
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, d = e / kTile;
-      if (j < nl && h0 + lane < H) {
-        const long long g = d * plane + (long long)(h0 + lane) * W + l0 + j;
-        const T v = bs[(d * kChunk + j) * kPitch + lane];
-        dxn[g] = accumulate ? from_f32<T>(to_f32(dxn[g]) + to_f32(v)) : v;
-      }
-    }
-    for (int e = tid; e < 5 * kTile; e += kThreads) {
-      const int j = e % kChunk, lane = (e / kChunk) % kLanesW, k = e / kTile;
-      if (j < nl && h0 + lane < H)
-        dwn[k * plane + (long long)(h0 + lane) * W + l0 + j] = ws[(k * kChunk + j) * kPitch + lane];
-    }
-    __syncthreads();  // the chunk is written back before the next is staged
-    if (ci + 1 < nchunks) {
-      stash();
-      __syncthreads();
-    }
+  for (int k = 0; k < STAGES - 1; ++k) {
+    if (k < nst) issue(k, k);
+    cp_async_commit();
   }
+  fetch(0);
+  const bool full = D == DP;
+  int q = 0;  // chunk, in walk order
+#pragma unroll 1
+  for (int t = 0; t < nst; ++t) {
+    if (t + STAGES - 1 < nst) issue(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();  // stage t of every lane's copies is in the ring
+    const int l0 = first_col(t), nl = min(S, W - l0);
+    T* st = ring + (t % STAGES) * stage;
+    T* xs = st;
+    T* as = st + DP * P;
+    T* ws = st + wrow * P;
+    auto chunks = [&](auto full_tag) {
+#pragma unroll 1
+      for (int cc = 0; cc < (nl + CH - 1) / CH; ++cc, ++q) {
+#pragma unroll
+        for (int i = 0; i < B; ++i)
+#pragma unroll
+          for (int k = 0; k < CW; ++k) gb[i][k] = gbn[i][k], od[i][k] = odn[i][k];
+        if (q + 1 < nq) fetch(q + 1);
+        const int c0 = chunk_col(q), jc = c0 - l0;
+#pragma unroll
+        for (int kk = 0; kk < CH; ++kk) {
+          // The element of the chunk; the registers are picked by
+          // compile-time indices (kk, CH - 1 - kk), never by k.
+          const int k = reverse ? kk : CH - 1 - kk;
+          if (c0 + k >= W) continue;
+          const int j = jc + k;  // step of the stage
+          float wv[5];
+#pragma unroll
+          for (int r = 0; r < 5; ++r) wv[r] = to_f32(ws[r * P + j]);
+          auto at = [&](int i) { return (i * 32 + g) * P + j; };  // this lane's bin i
+          grad_step<32, B, decltype(full_tag)::value>(
+              c, g, g, D, c0 + k == first_l, ACC, wv,
+              [&](int i) { return reverse ? unpack<T>(gb[i], kk) : unpack<T>(gb[i], CH - 1 - kk); },
+              [&](int i) { return to_f32(xs[at(i)]); },
+              [&](int i) { return to_f32(as[at(i) + ash]); },
+              [&](int d) { return to_f32(as[binrow(d) * P + j + ash]); },
+              [&](int i) { return reverse ? unpack<T>(od[i], kk) : unpack<T>(od[i], CH - 1 - kk); },
+              [&](int i, float v) { xs[at(i)] = from_f32<T>(v); },
+              [&](int r, float v) { ws[(5 + r) * P + j] = from_f32<T>(v); });
+        }
+      }
+    };
+    if (full)
+      chunks(std::true_type());
+    else
+      chunks(std::false_type());
+    __syncwarp();  // every lane's dx and dw of the stage are in the slot
+    T* dxl = dx + base + l0;
+    T* dwl = dw + (wsrc - w) + l0;
+    if (vec) {
+      if (e < nl) {
+        T* to = dxl + row0 * plane + e;
+        for (int r = row0; r < D; r += rstep, to += rstep * plane)
+          *reinterpret_cast<uint32_t*>(to) = *reinterpret_cast<const uint32_t*>(xs + binrow(r) * P + e);
+        to = dwl + row0 * plane + e;
+        for (int k = row0; k < 5; k += rstep, to += rstep * plane)
+          *reinterpret_cast<uint32_t*>(to) = *reinterpret_cast<const uint32_t*>(ws + (5 + k) * P + e);
+      }
+    } else {
+      for (int qq = g; qq < (D + 5) * S; qq += 32) {
+        const int r = qq / S, k = qq % S;
+        if (k < nl) {
+          if (r < D)
+            dxl[r * plane + k] = xs[binrow(r) * P + k];
+          else
+            dwl[(r - D) * plane + k] = ws[(r - D + 5) * P + k];
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with the slot before it is refilled
+  }
+  cp_async_wait<0>();
 }
 
-template <typename T, int DPT>
-cudaError_t launch_h(const T* x, const T* w, const T* a, const T* gbar, T* dx, T* dw, int N,
-                     int D, int H, int W, int reverse, int accumulate, long long w_nstride,
-                     cudaStream_t stream) {
-  const size_t shmem = step_bytes(D, kLanesH);
-  cudaError_t err = cudaFuncSetAttribute(
-      sga_bwd_h_kernel<T, DPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+// What one launch runs: kernel geometry and staging path.
+struct Plan {
+  int vec, wide, G, B, steps, stages, warps_per_block, blocks;
+  size_t smem;
+};
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// G lanes a column, B bins a lane: along H as in sga_fwd.cu, along W a warp
+// a column.
+#define SGA_BWD_BY_D_H(CALL)        \
+  if (D <= 8) return CALL(1, 8);    \
+  if (D <= 16) return CALL(2, 8);   \
+  if (D <= 32) return CALL(2, 16);  \
+  if (D <= 64) return CALL(2, 32);  \
+  if (D <= 128) return CALL(4, 32); \
+  return cudaErrorInvalidValue;
+#define SGA_BWD_BY_D_W(CALL)        \
+  if (D <= 32) return CALL(32, 1);  \
+  if (D <= 64) return CALL(32, 2);  \
+  if (D <= 128) return CALL(32, 4); \
+  return cudaErrorInvalidValue;
+
+template <typename T, bool AW, int G, int B>
+Plan plan(const void* const (&ptrs)[6], int N, int D, int H, int W, int accumulate,
+          long long w_nstride) {
+  Plan p;
+  p.G = G;
+  p.B = B;
+  p.warps_per_block = 1;
+  const int elem = sizeof(T);
+  const int vols = 3 + accumulate;
+  const int bytes = AW ? 4 : kCopy;  // one copy
+  p.vec = (W * elem) % bytes == 0 && (w_nstride * elem) % bytes == 0;
+  for (const void* q : ptrs) p.vec = p.vec && aligned(q, bytes);
+  // Along W gbar and the old dx go to registers by 16-byte loads where
+  // their rows allow.
+  p.wide = p.vec && (W * elem) % 16 == 0 && aligned(ptrs[3], 16) && aligned(ptrs[4], 16);
+  if (AW) {
+    p.steps = kRunW / elem;
+    p.stages = kStagesW;
+    p.smem = (size_t)kStagesW * (2 * G * B + 10) * (kRunW + 4);
+    p.blocks = N * H;
+  } else {
+    const int TM = 32 / G;
+    p.steps = 1;
+    p.stages = kStagesH[accumulate];
+    p.smem = (size_t)p.stages * (vols * G * B + 10) * TM * elem;
+    p.blocks = N * ((W + TM - 1) / TM);
+  }
+  return p;
+}
+
+// The kernel of a launch: axis, lanes and bins, storing or accumulating.
+template <typename T, bool AW, int G, int B, int ACC>
+const void* kernel_of() {
+  if constexpr (AW)
+    return reinterpret_cast<const void*>(sga_bwd_w_kernel<T, B, kRunW, kStagesW, ACC == 1>);
+  else
+    return reinterpret_cast<const void*>(sga_bwd_h_kernel<T, G, B, kStagesH[ACC]>);
+}
+
+template <typename T, bool AW, int G, int B, int ACC>
+cudaError_t launch_as(const Plan& p, const T* x, const T* w, const T* a, const T* gbar, T* dx,
+                      T* dw, int N, int D, int H, int W, int reverse, long long w_nstride,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel_of<T, AW, G, B, ACC>(),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((W + kLanesH - 1) / kLanesH, N);
-  sga_bwd_h_kernel<T, DPT><<<grid, dim3(kLanesH, kThreads / kLanesH), shmem, stream>>>(
-      x, w, a, gbar, dx, dw, D, H, W, w_nstride, reverse, accumulate);
+  if constexpr (AW)
+    sga_bwd_w_kernel<T, B, kRunW, kStagesW, ACC == 1><<<p.blocks, 32, p.smem, stream>>>(
+        x, w, a, gbar, dx, dw, N, D, H, W, w_nstride, reverse, p.vec, p.wide);
+  else
+    sga_bwd_h_kernel<T, G, B, kStagesH[ACC]><<<p.blocks, 32, p.smem, stream>>>(
+        x, w, a, gbar, dx, dw, N, D, H, W, w_nstride, reverse, ACC, p.vec);
   return cudaGetLastError();
 }
 
-template <typename T, int DPT>
-cudaError_t launch_w(const T* x, const T* w, const T* a, const T* gbar, T* dx, T* dw, int N,
-                     int D, int H, int W, int reverse, int accumulate, long long w_nstride,
-                     cudaStream_t stream) {
-  const size_t shmem = staged_bytes<T>(D) + step_bytes(D, kLanesW);
-  if (shmem > kMaxShared) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sga_bwd_w_kernel<T, DPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+template <typename T, bool AW, int G, int B>
+cudaError_t launch(const T* x, const T* w, const T* a, const T* gbar, T* dx, T* dw, int N, int D,
+                   int H, int W, int reverse, int accumulate, long long w_nstride,
+                   cudaStream_t stream) {
+  const void* const ptrs[6] = {x, w, a, gbar, dx, dw};
+  const Plan p = plan<T, AW, G, B>(ptrs, N, D, H, W, accumulate, w_nstride);
+  if (accumulate)
+    return launch_as<T, AW, G, B, 1>(p, x, w, a, gbar, dx, dw, N, D, H, W, reverse, w_nstride, stream);
+  return launch_as<T, AW, G, B, 0>(p, x, w, a, gbar, dx, dw, N, D, H, W, reverse, w_nstride, stream);
+}
+
+template <typename T, bool AW, int G, int B>
+cudaError_t describe(const void* const (&ptrs)[6], int N, int D, int H, int W, int accumulate,
+                     long long w_nstride, int* info) {
+  const Plan p = plan<T, AW, G, B>(ptrs, N, D, H, W, accumulate, w_nstride);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(
+      &attr, accumulate ? kernel_of<T, AW, G, B, 1>() : kernel_of<T, AW, G, B, 0>());
   if (err != cudaSuccess) return err;
-  dim3 grid((H + kLanesW - 1) / kLanesW, N);
-  sga_bwd_w_kernel<T, DPT><<<grid, dim3(kLanesW, kThreads / kLanesW), shmem, stream>>>(
-      x, w, a, gbar, dx, dw, D, H, W, w_nstride, reverse, accumulate);
-  return cudaGetLastError();
+  const int v[] = {p.vec, attr.numRegs, (int)p.smem, (int)attr.localSizeBytes, p.G, p.B,
+                   p.steps, p.stages, p.warps_per_block, p.blocks};
+  for (int i = 0; i < 10; ++i) info[i] = v[i];
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -440,29 +779,40 @@ cudaError_t dispatch(const void* xv, const void* wv, const void* av, const void*
   const T* b = static_cast<const T*>(bv);
   T* dx = static_cast<T*>(dxv);
   T* dw = static_cast<T*>(dwv);
-#define SGA_BWD_ARGS x, w, a, b, dx, dw, N, D, H, W, reverse, accumulate, w_nstride, stream
-  if (axis_w) {  // 32 rows of d: DPT = ceil(D / 32)
-    const int dpt = (D + 31) / 32;
-    if (dpt <= 1) return launch_w<T, 1>(SGA_BWD_ARGS);
-    if (dpt <= 2) return launch_w<T, 2>(SGA_BWD_ARGS);
-    if (dpt <= 4) return launch_w<T, 4>(SGA_BWD_ARGS);
-    return cudaErrorInvalidValue;
+#define SGA_BWD_LAUNCH(AW, G, B) \
+  launch<T, AW, G, B>(x, w, a, b, dx, dw, N, D, H, W, reverse, accumulate, w_nstride, stream)
+#define SGA_BWD_LAUNCH_W(G, B) SGA_BWD_LAUNCH(true, G, B)
+#define SGA_BWD_LAUNCH_H(G, B) SGA_BWD_LAUNCH(false, G, B)
+  if (axis_w) {
+    SGA_BWD_BY_D_W(SGA_BWD_LAUNCH_W)
   }
-  const int dpt = (D + 7) / 8;  // 8 rows of d
-  if (dpt <= 1) return launch_h<T, 1>(SGA_BWD_ARGS);
-  if (dpt <= 2) return launch_h<T, 2>(SGA_BWD_ARGS);
-  if (dpt <= 4) return launch_h<T, 4>(SGA_BWD_ARGS);
-  if (dpt <= 8) return launch_h<T, 8>(SGA_BWD_ARGS);
-  if (dpt <= 16) return launch_h<T, 16>(SGA_BWD_ARGS);
-#undef SGA_BWD_ARGS
-  return cudaErrorInvalidValue;
+  SGA_BWD_BY_D_H(SGA_BWD_LAUNCH_H)
+#undef SGA_BWD_LAUNCH_H
+#undef SGA_BWD_LAUNCH_W
+#undef SGA_BWD_LAUNCH
+}
+
+template <typename T>
+cudaError_t dispatch_describe(const void* const (&ptrs)[6], int N, int D, int H, int W,
+                              int axis_w, int accumulate, long long w_nstride, int* info) {
+#define SGA_BWD_DESCRIBE(AW, G, B) \
+  describe<T, AW, G, B>(ptrs, N, D, H, W, accumulate, w_nstride, info)
+#define SGA_BWD_DESCRIBE_W(G, B) SGA_BWD_DESCRIBE(true, G, B)
+#define SGA_BWD_DESCRIBE_H(G, B) SGA_BWD_DESCRIBE(false, G, B)
+  if (axis_w) {
+    SGA_BWD_BY_D_W(SGA_BWD_DESCRIBE_W)
+  }
+  SGA_BWD_BY_D_H(SGA_BWD_DESCRIBE_H)
+#undef SGA_BWD_DESCRIBE_H
+#undef SGA_BWD_DESCRIBE_W
+#undef SGA_BWD_DESCRIBE
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest D one launch takes (rows of d x the largest DPT instantiated).
+// Largest D one launch takes (4 lanes x 32 bins along H, 32 x 4 along W).
 int sga_sweep_bwd_max_d() { return 128; }
 
 // x, a (the forward's output), gbar, dx: (N, D, H, W); w, dw: this
@@ -480,6 +830,24 @@ int sga_sweep_bwd(const void* x, const void* w, const void* a, const void* gbar,
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(x, w, a, gbar, dx, dw, N, D, H, W, axis_w, reverse,
                                    accumulate, w_nstride, s);
+  return cudaErrorInvalidValue;
+}
+
+// What `sga_sweep_bwd` with these arguments launches, without launching:
+// info[0..9] = vectorised staging (1) or element-wise (0), registers a
+// thread, dynamic shared memory a block (bytes), local memory a thread
+// (bytes; spills), lanes a column G, bins a lane B, steps a stage, stages
+// in a warp's ring, warps a block, blocks.  Returns a CUDA error.
+int sga_sweep_bwd_describe(const void* x, const void* w, const void* a, const void* gbar,
+                           const void* dx, const void* dw, int N, int D, int H, int W,
+                           int axis_w, int accumulate, long long w_nstride, int dtype,
+                           int* info) {
+  const void* const ptrs[6] = {x, w, a, gbar, dx, dw};
+  if (dtype == 0)
+    return dispatch_describe<float>(ptrs, N, D, H, W, axis_w, accumulate, w_nstride, info);
+  if (dtype == 1)
+    return dispatch_describe<__nv_bfloat16>(ptrs, N, D, H, W, axis_w, accumulate, w_nstride,
+                                            info);
   return cudaErrorInvalidValue;
 }
 

@@ -245,6 +245,48 @@ def sga_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def weight_slot(w: torch.Tensor, x: torch.Tensor, direction: int | None) -> tuple[int, int]:
+    """Where one direction's weights lie in w, for a kernel launch on the
+    (N, D, H, W) volume x: (offset of the first element, stride between
+    consecutive n), in elements.  w is (N, 5, H, W) with `direction` None,
+    or (N, 4, 5, H, W) with `direction` selecting the set."""
+    N, _, H, W = x.shape
+    if direction is None:
+        if tuple(w.shape) != (N, 5, H, W):
+            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
+        return 0, 5 * H * W
+    if tuple(w.shape) != (N, 4, 5, H, W) or not 0 <= direction < 4:
+        raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
+    return direction * 5 * H * W, 20 * H * W
+
+
+# The fields of a `*_describe` entry of the SGA kernels' libraries.
+DESCRIBE_KEYS = ("vectorised", "registers", "shared_bytes", "local_bytes", "lanes", "bins",
+                 "steps", "stages", "warps", "blocks")
+
+
+def _describe(loader, symbol: str, layout: str, x, w, axis: str, direction, accumulate: bool) -> dict:
+    """Call the describe entry `symbol` of a kernel library: each of its
+    pointer arguments is x's (`layout` letter "x") or w's at `direction`'s
+    weights ("w"), then the shape, axis, accumulate, stride and dtype."""
+    if not x.is_cuda:
+        raise ValueError(f"{symbol} describes a CUDA launch, got {x.device}")
+    if axis not in ("h", "w"):
+        raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
+    N, D, H, W = x.shape
+    w_offset, w_nstride = weight_slot(w, x, direction)
+    ptr = {"x": x.data_ptr(), "w": w.data_ptr() + w_offset * w.element_size()}
+    fn = getattr(loader(), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(layout) + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    info = (ctypes.c_int * 10)()
+    status = fn(*(ptr[c] for c in layout), N, D, H, W, int(axis == "w"), int(accumulate),
+                w_nstride, _DTYPES[x.dtype], ctypes.addressof(info))
+    _build.check(status, symbol)
+    return dict(zip(DESCRIBE_KEYS, info))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sga_fwd")
     fn = lib.sga_sweep_fwd
@@ -283,14 +325,7 @@ def sga_sweep_kernel(
     if x.dim() != 4 or not x.is_contiguous() or not w.is_contiguous():
         raise ValueError("sga kernel takes a contiguous (N, D, H, W) volume and weights")
     N, D, H, W = x.shape
-    if direction is None:
-        if tuple(w.shape) != (N, 5, H, W):
-            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
-        w_offset, w_nstride = 0, 5 * H * W
-    else:
-        if tuple(w.shape) != (N, 4, 5, H, W) or not 0 <= direction < 4:
-            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
-        w_offset, w_nstride = direction * 5 * H * W, 20 * H * W
+    w_offset, w_nstride = weight_slot(w, x, direction)
     if axis not in ("h", "w"):
         raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
     if w.device != x.device:
@@ -320,6 +355,16 @@ def sga_sweep_kernel(
 
 
 sga_sweep_kernel.launches = 0
+
+
+def sga_describe(x: torch.Tensor, w: torch.Tensor, axis: str, direction: int | None = None,
+                 accumulate: bool = False) -> dict:
+    """What one K1 launch (`sga_sweep_kernel`) on these CUDA tensors runs,
+    without launching, from `sga_sweep_fwd_describe`: staging path
+    (`vectorised` 1, element-wise 0), registers, shared memory a block,
+    local memory a thread (spills), lanes x bins a column, steps a stage,
+    stages, warps a block, blocks.  Raises on a CPU tensor."""
+    return _describe(_lib, "sga_sweep_fwd_describe", "xwx", x, w, axis, direction, accumulate)
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -372,14 +417,7 @@ def sga_sweep_bwd_kernel(
     if any(t.device != x.device for t in (w, a, gbar)):
         raise ValueError("all inputs must be on one device")
     N, D, H, W = x.shape
-    if direction is None:
-        if tuple(w.shape) != (N, 5, H, W):
-            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
-        w_offset, w_nstride = 0, 5 * H * W
-    else:
-        if tuple(w.shape) != (N, 4, 5, H, W) or not 0 <= direction < 4:
-            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
-        w_offset, w_nstride = direction * 5 * H * W, 20 * H * W
+    w_offset, w_nstride = weight_slot(w, x, direction)
     if axis not in ("h", "w"):
         raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
     lib = _bwd_lib()
@@ -418,6 +456,15 @@ def sga_sweep_bwd_kernel(
 sga_sweep_bwd_kernel.launches = 0
 
 
+def sga_bwd_describe(x: torch.Tensor, w: torch.Tensor, axis: str, direction: int | None = None,
+                     accumulate: bool = False) -> dict:
+    """What one K3 launch (`sga_sweep_bwd_kernel`) runs, from
+    `sga_sweep_bwd_describe`, with `sga_describe`'s fields, for volumes
+    (A, gbar, dx) laid out and aligned as x and dw as w.  Raises on a CPU
+    tensor."""
+    return _describe(_bwd_lib, "sga_sweep_bwd_describe", "xwxxxw", x, w, axis, direction, accumulate)
+
+
 # ---------------------------------------------------------------------------
 # seeded H sweeps of the sharded wavefront (csrc/sga_fwd_seeded.cu, K5, and
 # csrc/sga_bwd_seeded.cu, K6)
@@ -429,15 +476,9 @@ def _window(x: torch.Tensor, w: torch.Tensor, direction: int | None, col0: int, 
     (cols, w_offset, w_nstride, this direction's weights as a view)."""
     if x.dim() != 4 or not x.is_contiguous() or not w.is_contiguous():
         raise ValueError("seeded sweep takes a contiguous (N, D, H, W) volume and weights")
-    N, D, H, W = x.shape
-    if direction is None:
-        if tuple(w.shape) != (N, 5, H, W):
-            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
-        w_offset, w_nstride, wd = 0, 5 * H * W, w
-    else:
-        if tuple(w.shape) != (N, 4, 5, H, W) or not 0 <= direction < 4:
-            raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
-        w_offset, w_nstride, wd = direction * 5 * H * W, 20 * H * W, w[:, direction]
+    W = x.shape[3]
+    w_offset, w_nstride = weight_slot(w, x, direction)
+    wd = w if direction is None else w[:, direction]
     cols = W - col0 if cols is None else cols
     if not (0 <= col0 and 0 < cols and col0 + cols <= W):
         raise ValueError(f"column window [{col0}, {col0 + cols}) is not inside W={W}")

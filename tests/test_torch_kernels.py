@@ -17,7 +17,6 @@ for a rounding difference that an earlier pass hands on.
 import pytest
 import torch
 
-from chip_smoke import sga_describe
 from ganet_tpu_torch.ops import lga as G
 from ganet_tpu_torch.ops import sga as S
 from ganet_tpu_torch.ops.normalize import l1_normalize
@@ -88,7 +87,7 @@ def test_sga_sweep_kernel_staging(cuda, D, dtype):
                 for direction, (ax, reverse) in enumerate(S.DIRECTIONS):
                     if ax != axis:
                         continue
-                    info = sga_describe(torch, x, w, axis, direction, False)
+                    info = S.sga_describe(x, w, axis, direction, False)
                     assert info["vectorised"] == int(vec) and info["local_bytes"] == 0, info
                     ref = S.sga_sweep_plain(x, w[:, direction], axis, reverse).to(dtype)
                     got = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction)
@@ -194,6 +193,67 @@ def test_sga_bwd_kernel(cuda, shape, dtype):
         want_sum += want_dx.float()
     if dtype == torch.float32:  # in bf16 each in-place add rounds once more
         _close(dx_sum, want_sum, summed=True)
+
+
+def _bwd_refs(x, w, a, gbar, axis, reverse):
+    """The plain gradient sweep on the inputs widened to float32: dx and dw
+    before the rounding to x's dtype."""
+    return S.sga_sweep_bwd_plain(x.float(), w.float(), a.float(), gbar.float(), axis, reverse)
+
+
+# K3's staging: D across the splits of its bins over lanes, sweep lengths
+# below, at and past the H-sweep ring and the W-sweep stages (16 to 64
+# steps), and a prime; W = 40 and 37 across H sweeps (vectorised and, odd,
+# element-wise staging, with the direction's weight offset), H = 40 and 37
+# across W sweeps (vectorised unless a bfloat16 row is odd).  Storing with
+# the direction's own weights and with the (N, 4, 5, H, W) set, and
+# accumulating into a random dx, which the kernel adds in float32 and
+# rounds once.
+@pytest.mark.parametrize("D", [1, 2, 16, 33, 64, 65, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sga_bwd_kernel_staging(cuda, D, dtype):
+    N = 2
+    for axis in ("h", "w"):
+        for L in K1_LENGTHS:
+            for across in (40, 37):
+                H, W = (L, across) if axis == "h" else (across, L)
+                x = _tie_volume(cuda, (N, D, H, W), dtype)
+                w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda), dim=2).to(dtype)
+                gbar = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+                prev = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+                vec = (W * x.element_size()) % (4 if axis == "w" else 16) == 0
+                for direction, (ax, reverse) in enumerate(S.DIRECTIONS):
+                    if ax != axis:
+                        continue
+                    for accumulate in (False, True):
+                        info = S.sga_bwd_describe(x, w, axis, direction, accumulate)
+                        assert info["vectorised"] == int(vec) and info["local_bytes"] == 0, info
+                    a = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction)
+                    ref_dx, ref_dw = _bwd_refs(x, w[:, direction], a, gbar, axis, reverse)
+                    wk = w[:, direction].contiguous()
+                    got_dx, got_dw = S.sga_sweep_bwd_kernel(x, wk, a, gbar, axis, reverse)
+                    _close(got_dx, ref_dx.to(dtype), summed=True)
+                    _close(got_dw, ref_dw.to(dtype), summed=True)
+                    dw = torch.zeros_like(w)
+                    acc, _ = S.sga_sweep_bwd_kernel(
+                        x, w, a, gbar, axis, reverse, direction=direction, dx=prev.clone(), dw=dw)
+                    _close(acc, (prev.float() + ref_dx).to(dtype), summed=True)
+                    assert torch.equal(dw[:, direction], got_dw)
+                    assert not dw[:, [k for k in range(4) if k != direction]].any()
+
+
+def test_sga_bwd_describe_at_the_training_blocks(cuda):
+    """K3 at GANet_deep's training blocks (240x528, batch 2): vectorised
+    staging in all 4 directions, storing and accumulating, no local
+    memory."""
+    for N, D, H, W in ((64, 64, 80, 176), (96, 32, 40, 88)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.empty((N, D, H, W), device="cuda", dtype=dtype)
+            w = torch.empty((N, 4, 5, H, W), device="cuda", dtype=dtype)
+            for direction, (axis, _) in enumerate(S.DIRECTIONS):
+                for accumulate in (False, True):
+                    info = S.sga_bwd_describe(x, w, axis, direction, accumulate)
+                    assert info["vectorised"] == 1 and info["local_bytes"] == 0, (N, D, H, W, info)
 
 
 @pytest.mark.parametrize("radius", [1, 2])
