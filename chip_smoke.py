@@ -26,7 +26,10 @@ CUDA toolkit.  Phases, each printing its lines:
      floor and its staging path, registers, shared and local memory (as
      phase 2 for K1), and a block's 4 directions as the training step
      runs them;
-  7. the LGA backward kernel (K4) likewise at the training path's head;
+  7. the LGA backward kernel (K4) likewise at the training path's head and
+     at the `lga3d` backward's fold, float32 and bfloat16: two launches
+     bit-identical, its time beside its bound, and its registers, shared
+     memory, local memory (none) and blocks an SM;
   8. gradients of the whole model in train mode at 240x528, D=192, batch 1,
      float32 with TF32 off, through the kernels and through the plain
      versions, from one seeded init and one synthetic batch;
@@ -522,43 +525,65 @@ def phase_sga_bwd(torch, gen):
     return entry
 
 
+def lga_bwd_describe_line(info: dict) -> str:
+    """One line of K4's `lga_bwd_describe` fields (ops/lga.py)."""
+    return (f"{info['registers']} registers, {info['static_shared_bytes']} B static + "
+            f"{info['dynamic_shared_bytes']} B dynamic shared a block, {info['local_bytes']} B local, "
+            f"{info['blocks_per_sm']} blocks an SM of {info['threads']} threads, tile "
+            f"{info['tile_h']}x{info['tile_w']}, {info['chunk']} slices a chunk, {info['blocks']} blocks")
+
+
 def phase_lga_bwd(torch, gen):
-    """K4 at the training path's head; returns the JSON entry (one bf16 pass)."""
+    """K4 at the training path's head and at the `lga3d` backward's fold;
+    returns the JSON entry (one bf16 pass at the head)."""
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
-    B, D, H, W, r = 2, 192, 240, 528, 2
-    x32 = torch.randn((B, D, H, W), device="cuda", generator=gen)
-    g32 = l1_normalize(torch.randn((B, 75, H, W), device="cuda", generator=gen), dim=1)
-    b32 = torch.randn((B, D, H, W), device="cuda", generator=gen)
+    r = 2
     entry = None
-    for dtype in (torch.float32, torch.bfloat16):
-        x, g, gbar = x32.to(dtype), g32.to(dtype), b32.to(dtype)
-        tag = f"lga_bwd {tuple(x.shape)} r{r} {str(dtype)[6:]}"
-        got_dx, got_dg = G.lga_bwd_kernel(x, g, gbar, r)
-        ref_dx, ref_dg = G.lga_bwd_plain(x, g, gbar, r)
-        err = max(compare(torch, f"{tag} dx", got_dx, ref_dx, summed=True),
-                  compare(torch, f"{tag} dg", got_dg, ref_dg, summed=True))
-        del got_dx, got_dg, ref_dx, ref_dg
-        ms = cuda_ms(torch, lambda: G.lga_bwd_kernel(x, g, gbar, r), reps=5)
-        plain_ms = cuda_ms(torch, lambda: G.lga_bwd_plain(x, g, gbar, r), reps=1)
-        numel = x.numel()
-        # Reads x, gbar and the guidance, writes dx and dg.
-        nbytes = (3 * numel + 2 * g.numel()) * x.element_size()
-        flops = 2 * 2 * 75 * numel  # 75 FMAs for dx and 75 for dg per element
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
-        log(f"  {tag}: kernel {ms:.3f} ms per pass, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        if dtype == torch.bfloat16:
-            entry = {
-                "name": "lga_bwd", "route": "cuda",
-                "source": "ganet_tpu_torch/csrc/lga_bwd.cu",
-                "replaces": "ganet_tpu/ops/lga_pallas.py:367",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            }
-        del x, g, gbar
+    # (B, D, H, W): the head of GANet_deep at 240x528, batch 2, and the fold
+    # (B*C, D, H, W) of `lga3d` at the training crop's volume (phase 13).
+    for label, (B, D, H, W) in (("head", (2, 192, 240, 528)), ("fold", (64, 64, 80, 176))):
+        x32 = torch.randn((B, D, H, W), device="cuda", generator=gen)
+        g32 = l1_normalize(torch.randn((B, 75, H, W), device="cuda", generator=gen), dim=1)
+        b32 = torch.randn((B, D, H, W), device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g, gbar = x32.to(dtype), g32.to(dtype), b32.to(dtype)
+            tag = f"lga_bwd {label} {tuple(x.shape)} r{r} {str(dtype)[6:]}"
+            got_dx, got_dg = G.lga_bwd_kernel(x, g, gbar, r)
+            ref_dx, ref_dg = G.lga_bwd_plain(x, g, gbar, r)
+            err = max(compare(torch, f"{tag} dx", got_dx, ref_dx, summed=True),
+                      compare(torch, f"{tag} dg", got_dg, ref_dg, summed=True))
+            del ref_dx, ref_dg
+            again_dx, again_dg = G.lga_bwd_kernel(x, g, gbar, r)
+            if not (torch.equal(again_dx, got_dx) and torch.equal(again_dg, got_dg)):
+                raise AssertionError(f"{tag}: two launches differ")
+            del got_dx, got_dg, again_dx, again_dg
+            ms = cuda_ms(torch, lambda: G.lga_bwd_kernel(x, g, gbar, r), reps=5)
+            info = G.lga_bwd_describe(x, r)
+            if info["local_bytes"]:
+                raise AssertionError(f"{tag}: K4 uses local memory: {info}")
+            numel = x.numel()
+            # Reads x, gbar and the guidance, writes dx and dg.
+            nbytes = (3 * numel + 2 * g.numel()) * x.element_size()
+            flops = 2 * 2 * 75 * numel  # 75 FMAs for dx and 75 for dg per element
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
+            log(f"  {tag}: kernel {ms:.3f} ms per pass, bound {bound_ms:.3f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {lga_bwd_describe_line(info)}")
+            if label == "head" and dtype == torch.bfloat16:
+                plain_ms = cuda_ms(torch, lambda: G.lga_bwd_plain(x, g, gbar, r), reps=1)
+                log(f"  {tag}: plain {plain_ms:.3f} ms per pass")
+                entry = {
+                    "name": "lga_bwd", "route": "cuda",
+                    "source": "ganet_tpu_torch/csrc/lga_bwd.cu",
+                    "replaces": "ganet_tpu/ops/lga_pallas.py:367",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                }
+            del x, g, gbar
+        del x32, g32, b32
+        torch.cuda.empty_cache()
     return entry
 
 

@@ -206,6 +206,35 @@ def lga_bwd_kernel(
 lga_bwd_kernel.launches = 0
 
 
+# The fields of `lga_bwd_describe`, in the order of its C entry's info array.
+LGA_BWD_DESCRIBE_KEYS = ("registers", "static_shared_bytes", "dynamic_shared_bytes", "local_bytes",
+                         "blocks_per_sm", "threads", "tile_h", "tile_w", "chunk", "blocks")
+
+
+def lga_bwd_describe(x: torch.Tensor, radius: int) -> dict:
+    """What one K4 launch (`lga_bwd_kernel`) on a volume like x (B, D, H, W)
+    runs, without launching: its one kernel's registers a thread, static
+    and dynamic shared memory a block, local memory a thread (spills),
+    blocks an SM from the occupancy calculator, threads a block, the
+    tile, the disparity slices a chunk and the blocks of the grid.
+    Raises on a CPU tensor."""
+    if not x.is_cuda:
+        raise ValueError(f"lga_bwd_describe describes a CUDA launch, got {x.device}")
+    if x.dtype not in _DTYPES or x.dim() != 4:
+        raise ValueError(f"lga bwd kernel takes a float32 or bfloat16 (B, D, H, W), got {x.dtype}")
+    if radius not in (1, 2):
+        raise ValueError(f"lga bwd kernel takes radius 1 or 2, got {radius}")
+    B, D, H, W = x.shape
+    fn = _bwd_lib().lga_bwd_describe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    info = (ctypes.c_int * len(LGA_BWD_DESCRIBE_KEYS))()
+    with torch.cuda.device(x.device):
+        status = fn(B, D, H, W, radius, _DTYPES[x.dtype], ctypes.addressof(info))
+    _build.check(status, "lga_bwd_describe")
+    return dict(zip(LGA_BWD_DESCRIBE_KEYS, info))
+
+
 class LGAFunction(torch.autograd.Function):
     """One LGA pass with its gradient; residuals (x, g75).  CUDA tensors
     launch K2 and K4, CPU tensors run their plain versions."""

@@ -16,6 +16,8 @@ float32, in other orders.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -134,11 +136,10 @@ def test_max_tree_splits_ties_as_jax(rng):
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
 
 
-@pytest.mark.parametrize("oracle", sorted(LGA_ORACLES))
-@pytest.mark.parametrize("radius", [1, 2])
-@pytest.mark.parametrize("repeats", [1, 2])
-def test_lga_bwd_matches_jax_vjp(rng, oracle, radius, repeats):
-    B, D, H, W = 1, 3, 8, 16
+def _check_lga_bwd(rng, oracle, shape, radius, repeats):
+    """`lga_bwd_plain` (one pass) and the autograd routes against jax.vjp
+    of `repeats` passes of the oracle."""
+    B, D, H, W = shape
     K = 2 * radius + 1
     x = rng.standard_normal((B, D, H, W)).astype(np.float32)
     g = _weights(rng, (B, H, W, 3 * K * K))
@@ -159,3 +160,29 @@ def test_lga_bwd_matches_jax_vjp(rng, oracle, radius, repeats):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
         np.testing.assert_allclose(xr.grad.numpy(), want_dx, **TOL)
         np.testing.assert_allclose(gr.grad.numpy(), want_dg, **TOL)
+
+
+@pytest.mark.parametrize("oracle", sorted(LGA_ORACLES))
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("repeats", [1, 2])
+def test_lga_bwd_matches_jax_vjp(rng, oracle, radius, repeats):
+    _check_lga_bwd(rng, oracle, (1, 3, 8, 16), radius, repeats)
+
+
+# The edges K4's card tests take, as the yardstick they use: D = 1, H below
+# the 5x5 stencil, an odd W past a 32-pixel tile, and B = 2.
+@pytest.mark.parametrize("oracle", sorted(LGA_ORACLES))
+@pytest.mark.parametrize("shape", [(1, 1, 8, 16), (1, 3, 3, 16), (1, 3, 6, 37), (2, 3, 5, 12)])
+def test_lga_bwd_matches_jax_vjp_at_edges(rng, oracle, shape):
+    _check_lga_bwd(rng, oracle, shape, 2, 1)
+
+
+def test_lga_bwd_describe_raises_on_a_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA"):
+        t_lga.lga_bwd_describe(torch.zeros((1, 3, 8, 16)), 2)
+
+
+def test_lga_bwd_kernel_has_no_atomics():
+    """K4 sums in a fixed order, so its result is the same from run to run."""
+    text = (Path(t_lga.__file__).resolve().parent.parent / "csrc" / "lga_bwd.cu").read_text()
+    assert not re.search(r"atomic\w*\s*\(|\batom\.|\bred\.", text)

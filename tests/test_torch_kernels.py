@@ -256,18 +256,69 @@ def test_sga_bwd_describe_at_the_training_blocks(cuda):
                     assert info["vectorised"] == 1 and info["local_bytes"] == 0, (N, D, H, W, info)
 
 
+# (B, D, H, W) of K4: ragged tiles, D = 1 and 2, D not a multiple of the
+# 4-slice chunk (13) and a multiple of it (4), H below the stencil (3), W
+# = 1 and W = 33 (one column past a tile), odd W (bfloat16 rows start
+# unaligned), B = 3, and a 192-slice slab.
+LGA_BWD_SHAPES = [(2, 11, 19, 45), (1, 1, 9, 37), (2, 2, 8, 33), (1, 13, 3, 40), (1, 5, 6, 1),
+                  (3, 4, 9, 33), (1, 192, 12, 70)]
+
+
+def _lga_bwd_inputs(gen, shape, radius, dtype):
+    B, D, H, W = shape
+    K = 2 * radius + 1
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    g = l1_normalize(torch.randn((B, 3 * K * K, H, W), device="cuda", generator=gen), dim=1).to(dtype)
+    gbar = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    return x, g, gbar
+
+
+@pytest.mark.parametrize("shape", LGA_BWD_SHAPES)
 @pytest.mark.parametrize("radius", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lga_bwd_kernel(cuda, radius, dtype):
-    B, D, H, W = 2, 11, 19, 45  # ragged 8x32 tiles
-    K = 2 * radius + 1
-    x = torch.randn((B, D, H, W), device="cuda", generator=cuda).to(dtype)
-    g = l1_normalize(torch.randn((B, 3 * K * K, H, W), device="cuda", generator=cuda), dim=1).to(dtype)
-    gbar = torch.randn((B, D, H, W), device="cuda", generator=cuda).to(dtype)
+def test_lga_bwd_kernel(cuda, shape, radius, dtype):
+    x, g, gbar = _lga_bwd_inputs(cuda, shape, radius, dtype)
     got_dx, got_dg = G.lga_bwd_kernel(x, g, gbar, radius)
     want_dx, want_dg = G.lga_bwd_plain(x, g, gbar, radius)
     _close(got_dx, want_dx, summed=True)
     _close(got_dg, want_dg, summed=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga_bwd_kernel_on_offset_views(cuda, dtype):
+    """x and gbar as contiguous views one element into their storage, with
+    an odd H*W: in bfloat16 the rows of every other slice start in the
+    high half of a 4-byte word, which K4's copies must find."""
+    shape = (2, 9, 15, 37)
+    for radius in (1, 2):
+        x0, g, gbar0 = _lga_bwd_inputs(cuda, shape, radius, dtype)
+        n = x0.numel()
+        x = torch.empty(n + 1, device="cuda", dtype=dtype)[1:].view(shape).copy_(x0)
+        gbar = torch.empty(n + 1, device="cuda", dtype=dtype)[1:].view(shape).copy_(gbar0)
+        got_dx, got_dg = G.lga_bwd_kernel(x, g, gbar, radius)
+        want_dx, want_dg = G.lga_bwd_kernel(x0, g, gbar0, radius)
+        assert torch.equal(got_dx, want_dx) and torch.equal(got_dg, want_dg)
+        _close(got_dx, G.lga_bwd_plain(x0, g, gbar0, radius)[0], summed=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga_bwd_kernel_is_deterministic(cuda, dtype):
+    """K4 sums in a fixed order with no atomics: two launches agree bit for bit."""
+    for radius in (1, 2):
+        x, g, gbar = _lga_bwd_inputs(cuda, (2, 37, 21, 70), radius, dtype)
+        dx1, dg1 = G.lga_bwd_kernel(x, g, gbar, radius)
+        dx2, dg2 = G.lga_bwd_kernel(x, g, gbar, radius)
+        assert torch.equal(dx1, dx2) and torch.equal(dg1, dg2)
+
+
+def test_lga_bwd_describe_at_the_path_shapes(cuda):
+    """K4 at the training head (2, 192, 240, 528) and the `lga3d` fold
+    (64, 64, 80, 176): no local memory, and at least one block an SM."""
+    for shape in ((2, 192, 240, 528), (64, 64, 80, 176)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for radius in (1, 2):
+                info = G.lga_bwd_describe(torch.empty(shape, device="cuda", dtype=dtype), radius)
+                assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (shape, info)
 
 
 @pytest.mark.parametrize("op", ["sga", "lga"])
