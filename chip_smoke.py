@@ -14,7 +14,11 @@ CUDA toolkit.  Phases, each printing its lines:
      floor, the staging path it took (vectorised at every shape of the
      model's paths, the training path's included), its registers, shared
      memory and local memory (no spills);
-  3. the LGA kernel (K2) likewise, radius 2, repeats 1 and 2;
+  3. the LGA kernel (K2) against its plain version at the eval path's head
+     (repeats 1 and 2) and at the training path's, float32 and bfloat16:
+     two launches bit-identical, its time beside its bound, its
+     registers, shared memory, local memory (none) and blocks an SM, and
+     the instructions of its chunk loop in SASS (cuobjdump);
   4. the whole model at 240x528, D=192, float32 with TF32 off, once through
      the kernels and once through the plain versions, from one seeded init;
   5. the eval path: GANet_deep at 576x960, D=192, batch 1, bfloat16, seeded
@@ -258,38 +262,112 @@ def lga_bound(numel: int, n_guidance: int, elem: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def phase_lga(torch, gen):
-    """K2 at the head's shape; returns the JSON entry (one bf16 pass)."""
+def lga_describe_line(info: dict) -> str:
+    """One line of K2's `lga_describe` or K4's `lga_bwd_describe` fields (ops/lga.py)."""
+    return (f"{info['registers']} registers, {info['static_shared_bytes']} B static + "
+            f"{info['dynamic_shared_bytes']} B dynamic shared a block, {info['local_bytes']} B local, "
+            f"{info['blocks_per_sm']} blocks an SM of {info['threads']} threads, tile "
+            f"{info['tile_h']}x{info['tile_w']}, {info['chunk']} slices a chunk, {info['blocks']} blocks")
+
+
+def sass_chunk_loops(lib_path) -> dict:
+    """Per kernel of a built library: the opcodes of its chunk loop, the
+    backward branch's body with the most FFMAs (the shortest such body,
+    where several have as many), from `cuobjdump -sass`.  Empty, with a
+    line that says why, where cuobjdump is missing or fails."""
+    import re
+    import shutil
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+    except (OSError, subprocess.CalledProcessError, subprocess.TimeoutExpired) as err:
+        log(f"  no SASS of {lib_path.name}: {tool}: {err}")
+        return {}
+    loops = {}
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        code = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        best = None
+        for addr, op in code:
+            m = re.search(r"\bBRA\s+0x([0-9a-f]+)", op)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            start = int(m.group(1), 16)
+            ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0]
+                          for a, o in code if start <= a <= addr)
+            key = (ops["FFMA"], -sum(ops.values()))
+            if best is None or key > best[0]:
+                best = (key, ops)
+        if best:
+            loops[name] = best[1]
+    return loops
+
+
+def sass_line(ops) -> str:
+    """One line of a chunk loop's opcode counts (`sass_chunk_loops`)."""
+    main = ("FFMA", "LDS", "LDG", "LDGSTS", "STS", "STG", "BAR", "LDL", "STL")
+    total = sum(ops.values())
+    rest = total - sum(ops[k] for k in main)
+    return (f"{total} instructions: " + ", ".join(f"{ops[k]} {k}" for k in main if ops[k])
+            + f", {rest} other; {total / max(ops['FFMA'], 1):.2f} an FFMA")
+
+
+def phase_lga(torch, gen, smi):
+    """K2 at the eval head (1, 192, 576, 960), repeats 1 and 2, and at the
+    training head (2, 192, 240, 528), float32 and bfloat16: against its
+    plain version, two launches bit-equal, no local memory, its time
+    beside its bound; returns the JSON entry (one bf16 pass at the eval
+    head)."""
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
-    B, D, H, W, r = 1, 192, 576, 960, 2
-    x32 = torch.randn((B, D, H, W), device="cuda", generator=gen)
-    g32 = l1_normalize(torch.randn((B, 75, H, W), device="cuda", generator=gen), dim=1)
+    r = 2
     entry = None
-    for dtype in (torch.float32, torch.bfloat16):
-        x, g = x32.to(dtype), g32.to(dtype)
-        tag = f"lga {tuple(x.shape)} r{r} {str(dtype)[6:]}"
-        errs = {}
-        for repeats in (1, 2):
-            got = G.lga_nchw(x, g, r, repeats)
-            ref = G.lga_reference_nchw(x, g, r, repeats)
-            errs[repeats] = compare(torch, f"{tag} repeats {repeats}", got, ref)
-            del got, ref
-        ms = cuda_ms(torch, lambda: G.lga_kernel(x, g, r), reps=10)
-        plain_ms = cuda_ms(torch, lambda: G.lga_reference_nchw(x, g, r, 1), reps=2)
-        bound_ms, by, nbytes, flops = lga_bound(x.numel(), g.numel(), x.element_size())
-        log(f"  {tag}: kernel {ms:.3f} ms per pass, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        if dtype == torch.bfloat16:
-            entry = {
-                "name": "lga_fwd", "route": "cuda",
-                "source": "ganet_tpu_torch/csrc/lga_fwd.cu",
-                "replaces": "ganet_tpu/ops/lga_pallas.py:122",
-                "max_abs_err": errs[1], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            }
-        del x, g
+    for label, (B, D, H, W), repeats in (("eval", (1, 192, 576, 960), (1, 2)),
+                                         ("train", (2, 192, 240, 528), (1,))):
+        x32 = torch.randn((B, D, H, W), device="cuda", generator=gen)
+        g32 = l1_normalize(torch.randn((B, 75, H, W), device="cuda", generator=gen), dim=1)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            tag = f"lga {label} {tuple(x.shape)} r{r} {str(dtype)[6:]}"
+            errs = {}
+            for n in repeats:
+                got = G.lga_nchw(x, g, r, n)
+                ref = G.lga_reference_nchw(x, g, r, n)
+                errs[n] = compare(torch, f"{tag} repeats {n}", got, ref)
+                del got, ref
+            if not torch.equal(G.lga_kernel(x, g, r), G.lga_kernel(x, g, r)):
+                raise AssertionError(f"{tag}: two launches differ")
+            info = G.lga_describe(x, r)
+            ms = cuda_ms(torch, lambda: G.lga_kernel(x, g, r), reps=10)
+            bound_ms, by, nbytes, flops = lga_bound(x.numel(), g.numel(), x.element_size())
+            log(f"  {tag}: kernel {ms:.3f} ms per pass, bound {bound_ms:.3f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {ms / bound_ms:.2f}x the bound; "
+                f"{lga_describe_line(info)}; card {smi}")
+            if info["local_bytes"]:
+                raise AssertionError(f"{tag}: K2 uses local memory: {info}")
+            if label == "eval" and dtype == torch.bfloat16:
+                plain_ms = cuda_ms(torch, lambda: G.lga_reference_nchw(x, g, r, 1), reps=2)
+                log(f"  {tag}: plain {plain_ms:.3f} ms per pass")
+                entry = {
+                    "name": "lga_fwd", "route": "cuda",
+                    "source": "ganet_tpu_torch/csrc/lga_fwd.cu",
+                    "replaces": "ganet_tpu/ops/lga_pallas.py:122",
+                    "max_abs_err": errs[1], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                }
+            del x, g
+        del x32, g32
+        torch.cuda.empty_cache()
+    # What bounds K2: its chunk loop in SASS, per instantiation.
+    from ganet_tpu_torch.ops import _build
+
+    for name, ops in sass_chunk_loops(_build._lib_path("lga_fwd")).items():
+        kind = ("bf16" if "bfloat16" in name else "f32") + (" r2" if "Li2E" in name else " r1")
+        log(f"  lga_fwd chunk loop {kind}: {sass_line(ops)}")
     return entry
 
 
@@ -525,14 +603,6 @@ def phase_sga_bwd(torch, gen):
     return entry
 
 
-def lga_bwd_describe_line(info: dict) -> str:
-    """One line of K4's `lga_bwd_describe` fields (ops/lga.py)."""
-    return (f"{info['registers']} registers, {info['static_shared_bytes']} B static + "
-            f"{info['dynamic_shared_bytes']} B dynamic shared a block, {info['local_bytes']} B local, "
-            f"{info['blocks_per_sm']} blocks an SM of {info['threads']} threads, tile "
-            f"{info['tile_h']}x{info['tile_w']}, {info['chunk']} slices a chunk, {info['blocks']} blocks")
-
-
 def phase_lga_bwd(torch, gen):
     """K4 at the training path's head and at the `lga3d` backward's fold;
     returns the JSON entry (one bf16 pass at the head)."""
@@ -570,7 +640,7 @@ def phase_lga_bwd(torch, gen):
             bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
             by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
             log(f"  {tag}: kernel {ms:.3f} ms per pass, bound {bound_ms:.3f} ms ({by}: "
-                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {lga_bwd_describe_line(info)}")
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); {lga_describe_line(info)}")
             if label == "head" and dtype == torch.bfloat16:
                 plain_ms = cuda_ms(torch, lambda: G.lga_bwd_plain(x, g, gbar, r), reps=1)
                 log(f"  {tag}: plain {plain_ms:.3f} ms per pass")
@@ -1157,7 +1227,7 @@ def main() -> int:
         entries.append(phase_sga(torch, gen))
     if want(3):
         log("[3] K2 LGA kernel vs plain version")
-        entries.append(phase_lga(torch, gen))
+        entries.append(phase_lga(torch, gen, smi))
     if want(4):
         phase_model_parity(torch, gen)
     if want(5):

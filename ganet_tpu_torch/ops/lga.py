@@ -158,6 +158,19 @@ def lga_kernel(x: torch.Tensor, g75: torch.Tensor, radius: int) -> torch.Tensor:
 lga_kernel.launches = 0
 
 
+# The fields of `lga_describe` (the C entry `lga_fwd_describe`), in the
+# order of its info array.
+LGA_FWD_DESCRIBE_KEYS = ("registers", "static_shared_bytes", "dynamic_shared_bytes", "local_bytes",
+                         "blocks_per_sm", "threads", "tile_h", "tile_w", "chunk", "blocks")
+
+
+def lga_describe(x: torch.Tensor, radius: int) -> dict:
+    """What one K2 launch (`lga_kernel`) on a volume like x (B, D, H, W)
+    runs, without launching: the fields of `LGA_FWD_DESCRIBE_KEYS`, as
+    `lga_bwd_describe` gives them for K4.  Raises on a CPU tensor."""
+    return _describe("lga_describe", _lib, "lga_fwd_describe", x, radius)
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("lga_bwd")
     fn = lib.lga_bwd
@@ -206,9 +219,30 @@ def lga_bwd_kernel(
 lga_bwd_kernel.launches = 0
 
 
-# The fields of `lga_bwd_describe`, in the order of its C entry's info array.
-LGA_BWD_DESCRIBE_KEYS = ("registers", "static_shared_bytes", "dynamic_shared_bytes", "local_bytes",
-                         "blocks_per_sm", "threads", "tile_h", "tile_w", "chunk", "blocks")
+# The fields of `lga_bwd_describe`, in the order of its C entry's info array
+# (the same as K2's).
+LGA_BWD_DESCRIBE_KEYS = LGA_FWD_DESCRIBE_KEYS
+
+
+def _describe(name: str, lib, entry: str, x: torch.Tensor, radius: int) -> dict:
+    """`name`'s work: call the C entry `entry` (B, D, H, W, radius, dtype,
+    info) of the library `lib()` for a launch on a volume like x, without
+    launching.  Raises on a CPU tensor."""
+    if not x.is_cuda:
+        raise ValueError(f"{name} describes a CUDA launch, got {x.device}")
+    if x.dtype not in _DTYPES or x.dim() != 4:
+        raise ValueError(f"{name} takes a float32 or bfloat16 (B, D, H, W), got {x.dtype}")
+    if radius not in (1, 2):
+        raise ValueError(f"{name} takes radius 1 or 2, got {radius}")
+    B, D, H, W = x.shape
+    fn = getattr(lib(), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    info = (ctypes.c_int * len(LGA_FWD_DESCRIBE_KEYS))()
+    with torch.cuda.device(x.device):
+        status = fn(B, D, H, W, radius, _DTYPES[x.dtype], ctypes.addressof(info))
+    _build.check(status, entry)
+    return dict(zip(LGA_FWD_DESCRIBE_KEYS, info))
 
 
 def lga_bwd_describe(x: torch.Tensor, radius: int) -> dict:
@@ -218,21 +252,7 @@ def lga_bwd_describe(x: torch.Tensor, radius: int) -> dict:
     blocks an SM from the occupancy calculator, threads a block, the
     tile, the disparity slices a chunk and the blocks of the grid.
     Raises on a CPU tensor."""
-    if not x.is_cuda:
-        raise ValueError(f"lga_bwd_describe describes a CUDA launch, got {x.device}")
-    if x.dtype not in _DTYPES or x.dim() != 4:
-        raise ValueError(f"lga bwd kernel takes a float32 or bfloat16 (B, D, H, W), got {x.dtype}")
-    if radius not in (1, 2):
-        raise ValueError(f"lga bwd kernel takes radius 1 or 2, got {radius}")
-    B, D, H, W = x.shape
-    fn = _bwd_lib().lga_bwd_describe
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    info = (ctypes.c_int * len(LGA_BWD_DESCRIBE_KEYS))()
-    with torch.cuda.device(x.device):
-        status = fn(B, D, H, W, radius, _DTYPES[x.dtype], ctypes.addressof(info))
-    _build.check(status, "lga_bwd_describe")
-    return dict(zip(LGA_BWD_DESCRIBE_KEYS, info))
+    return _describe("lga_bwd_describe", _bwd_lib, "lga_bwd_describe", x, radius)
 
 
 class LGAFunction(torch.autograd.Function):

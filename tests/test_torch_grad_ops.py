@@ -186,3 +186,14 @@ def test_lga_bwd_kernel_has_no_atomics():
     """K4 sums in a fixed order, so its result is the same from run to run."""
     text = (Path(t_lga.__file__).resolve().parent.parent / "csrc" / "lga_bwd.cu").read_text()
     assert not re.search(r"atomic\w*\s*\(|\batom\.|\bred\.", text)
+
+
+def test_lga_describe_raises_on_a_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA"):
+        t_lga.lga_describe(torch.zeros((1, 3, 8, 16)), 2)
+
+
+def test_lga_fwd_kernel_has_no_atomics():
+    """K2 sums in a fixed order, so its result is the same from run to run."""
+    text = (Path(t_lga.__file__).resolve().parent.parent / "csrc" / "lga_fwd.cu").read_text()
+    assert not re.search(r"atomic\w*\s*\(|\batom\.|\bred\.", text)

@@ -114,6 +114,51 @@ def test_lga_single_bin(cuda):
     _close(G.lga_kernel(x, g, 2), G.lga_reference_nchw(x, g, 2, 1))
 
 
+# K2 walks D in chunks of 4 slices: D below, at and past one and two chunks.
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5, 7, 8, 9, 13])
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga_kernel_across_chunk_edges(cuda, D, radius, dtype):
+    """Ragged 8x32 tiles with an odd H*W (19x45, B = 2), and H below the
+    stencil with an odd W (3x37)."""
+    for B, H, W in ((2, 19, 45), (1, 3, 37)):
+        x, g, _ = _lga_bwd_inputs(cuda, (B, D, H, W), radius, dtype)
+        _close(G.lga_kernel(x, g, radius), G.lga_reference_nchw(x, g, radius, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga_kernel_on_offset_views(cuda, dtype):
+    """x as a contiguous view one element into its storage, with an odd
+    H*W: in bfloat16 every other slice starts in the high half of a
+    4-byte word.  The result equals the aligned launch bit for bit."""
+    shape = (2, 9, 15, 37)
+    for radius in (1, 2):
+        x0, g, _ = _lga_bwd_inputs(cuda, shape, radius, dtype)
+        x = torch.empty(x0.numel() + 1, device="cuda", dtype=dtype)[1:].view(shape).copy_(x0)
+        got = G.lga_kernel(x, g, radius)
+        assert torch.equal(got, G.lga_kernel(x0, g, radius))
+        _close(got, G.lga_reference_nchw(x0, g, radius, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lga_kernel_is_deterministic(cuda, dtype):
+    """K2 sums in a fixed order with no atomics: two launches agree bit for bit."""
+    for radius in (1, 2):
+        x, g, _ = _lga_bwd_inputs(cuda, (2, 37, 21, 70), radius, dtype)
+        assert torch.equal(G.lga_kernel(x, g, radius), G.lga_kernel(x, g, radius))
+
+
+def test_lga_describe_at_the_path_shapes(cuda):
+    """K2 at the eval head (1, 192, 576, 960) and the training head
+    (2, 192, 240, 528): no local memory, and the two blocks an SM that
+    its register budget aims at."""
+    for shape in ((1, 192, 576, 960), (2, 192, 240, 528)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for radius in (1, 2):
+                info = G.lga_describe(torch.empty(shape, device="cuda", dtype=dtype), radius)
+                assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, (shape, info)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn((2, 4, 6, 8), device="cuda")
     w = torch.randn((2, 5, 6, 8), device="cuda")
@@ -439,15 +484,23 @@ def test_lga3d_kernel(cuda, C, D, radius, dtype):
 def test_lga3d_kernel_walks_channels(cuda, D, dtype):
     """At this size the launch gives each block several channels, so a
     block's walk crosses from slice D-1 of one channel to slice 0 of the
-    next; channels of very different scales must each equal K2 on their
-    own."""
+    next; channels of very different scales must each equal K7 run on
+    that channel alone, bit for bit, and agree with K2 on that channel.
+    K2 sums in another order, so every channel is held to it with the
+    tolerance for summed outputs, and those of scale 3 and below also
+    element by element."""
     C, H, W = 5, 203, 331
     scales = torch.tensor([1e4, 1e-3, 1.0, 1e2, 3.0], device="cuda").view(C, 1, 1, 1)
     x = (torch.randn((C, D, H, W), device="cuda", generator=cuda) * scales).to(dtype)
     g = l1_normalize(torch.randn((1, 75, H, W), device="cuda", generator=cuda), dim=1).to(dtype)
     got = G.lga3d_kernel(x, g, 2, C)
     for c in range(C):
-        _close(got[c : c + 1], G.lga_kernel(x[c : c + 1].contiguous(), g, 2))
+        alone = x[c : c + 1].clone()  # its own storage, 4-byte aligned for K7
+        assert torch.equal(got[c : c + 1], G.lga3d_kernel(alone, g, 2, 1)), c
+        k2 = G.lga_kernel(alone, g, 2)
+        _close(got[c : c + 1], k2, summed=True)
+        if scales[c].item() <= 3.0:
+            _close(got[c : c + 1], k2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
