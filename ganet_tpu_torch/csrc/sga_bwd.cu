@@ -58,22 +58,24 @@
 //    at the step that makes dx and rounded once.
 //  * Sweeps along H (l = h): A' is the A row at l -+ 1, as aligned as x.
 //    G and B as in sga_fwd.cu (2 lanes x 32 bins at D = 64, 16 columns a
-//    warp: 32-byte bf16 rows); a stage is one step of x, A', gbar, the old
-//    dx when accumulating and the 5 weight rows, copied and stored 16
-//    bytes at a time; dx goes over the consumed gbar (only the lane that
+//    warp: 32-byte bf16 rows; 8 x 32 at D = 256, 8-byte bf16 rows); a stage
+//    is one step of x, A', gbar, the old dx when accumulating and the 5
+//    weight rows, copied and stored 16 bytes (or a whole 8-byte row) at a
+//    time; dx goes over the consumed gbar (only the lane that
 //    owns a bin reads or writes it), dw into 5 rows of its own (every lane
 //    of a column reads the weights); 2 steps in the ring storing, 4
 //    accumulating.
 //  * Sweeps along W (l = w): one column a warp, bins over the 32 lanes
-//    (B = 1, 2 or 4, bin row (d % B) * 32 + d / B).  A stage holds a run
+//    (B = 1, 2, 4 or 8, bin row (d % B) * 32 + d / B).  A stage holds a run
 //    of 128 bytes (64 bf16 or 32 f32 steps) of every row of x and A' and
 //    of the 5 weight rows, at a pitch of 132 bytes (33 words, odd: the
 //    lanes' reads down the rows hit 32 banks), copied 4 bytes a lane, 2
 //    stages; dx goes out over the consumed x.  gbar and the old dx are not
 //    staged: each of their rows is read by the one lane that owns its bin,
 //    so that lane loads its own bins' rows straight into registers, 8
-//    steps at a time (4 at B = 4), by 16-byte loads where the rows allow,
-//    one chunk ahead of use.  A stage so holds two volumes for both
+//    steps at a time (4 at B = 4, 2 at B = 8), by 16-byte loads where the
+//    rows allow, one chunk ahead of use; at B = 8 the old dx is read at its
+//    use instead (with it in registers too, the build spilled in bf16).  A stage so holds two volumes for both
 //    launches, where staging every input took three storing and four
 //    accumulating.  A' at step l is A at l -+ 1, one element off x's run:
 //    A's run is staged one 4-byte unit wider on the side of the shift, so
@@ -86,10 +88,11 @@
 //    and 32) no bin is guarded, the lane maximum is kept without branches,
 //    and each lane copies and stores a fixed slice of fixed rows with
 //    pointer increments (along W by 32-bit shared addresses).
-//  * Alignment: vectorised staging (16-byte copies and stores along H,
-//    4-byte along W) where x, A, gbar, dx, w, dw and every row start allow,
-//    as at every shape of the model's paths; element-wise (`ld.global` ->
-//    `st.shared`, element stores and loads) otherwise.  In the gradient
+//  * Alignment: vectorised staging (16-byte copies and stores along H, or
+//    8-byte where a row is 8 bytes, 4-byte along W) where x, A, gbar, dx,
+//    w, dw and every row start allow, as at every shape of the model's
+//    paths; element-wise (`ld.global` -> `st.shared`, element stores and
+//    loads) otherwise.  In the gradient
 //    walk of a forward sweep the first stage met along W is the ragged
 //    tail: steps outside [0, L) are never run and never touch the carry.
 //  * Measured on an H100 80GB HBM3 at 700 W with chip_smoke.py phase 6 on
@@ -121,7 +124,14 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCopy = 16;  // bytes of one copy along H
+constexpr int kCopy = 16;  // bytes of one copy along H, at most
+
+// Bytes of one copy along H: 16, or a whole row of the 32/G columns a warp
+// owns where that is less (8 bytes in bf16 at G = 8).
+template <typename T, int G>
+__host__ __device__ constexpr int copy_bytes_h() {
+  return (32 / G) * (int)sizeof(T) < kCopy ? (32 / G) * (int)sizeof(T) : kCopy;
+}
 
 // Steps in a warp's ring along H, for a storing launch and for an
 // accumulating one; stages in a warp's ring and bytes of a row a stage
@@ -138,9 +148,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+// An asynchronous copy of BYTES (16 or 8) from global to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_h(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {  // dst: shared address
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
@@ -317,10 +333,12 @@ __global__ void __launch_bounds__(32)
 sga_bwd_h_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ a,
                  const T* __restrict__ gbar, T* __restrict__ dx, T* __restrict__ dw, int N, int D,
                  int H, int W, long long w_nstride, int reverse, int accumulate, int vec) {
-  constexpr int TM = 32 / G;              // columns a warp owns
-  constexpr int DP = G * B;               // bin rows of a volume
-  constexpr int EPC = kCopy / sizeof(T);  // elements of one 16-byte copy
-  static_assert(TM % EPC == 0, "a row is whole 16-byte copies");
+  constexpr int TM = 32 / G;               // columns a warp owns
+  constexpr int DP = G * B;                // bin rows of a volume
+  constexpr int CB = copy_bytes_h<T, G>(); // bytes of one copy
+  constexpr int EPC = CB / sizeof(T);      // elements of one copy
+  static_assert(TM % EPC == 0, "a row is whole copies");
+  using Vec = std::conditional_t<CB == 16, uint4, uint2>;  // one copy's bytes
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tiles = (W + TM - 1) / TM;
@@ -336,7 +354,7 @@ sga_bwd_h_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
   const int first_l = reverse ? H - 1 : 0;
   auto binrow = [&](int d) { return (d % B) * G + d / B; };
   // This lane's share of a stage's copies and stores: the elements [col,
-  // col + per) of rows row0, row0 + rstep, ... (whole 16-byte copies when
+  // col + per) of rows row0, row0 + rstep, ... (whole copies when
   // vectorised, single elements otherwise).
   const int per = vec ? EPC : 1, cpr = TM / per;
   const int col = (lane % cpr) * per, row0 = lane / cpr, rstep = 32 / cpr;
@@ -353,7 +371,7 @@ sga_bwd_h_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
     T* st = ring + slot * stage + col;
     auto copy = [&](T* to, const T* from) {
       if (vec)
-        cp_async16(to, from);
+        cp_async_h<CB>(to, from);
       else
         *to = *from;
     };
@@ -413,14 +431,14 @@ sga_bwd_h_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
       T* to = dx + base + (long long)l * W + row0 * plane;
       for (int r = row0; r < D; r += rstep, to += rstep * plane) {
         if (vec)
-          *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(bs + binrow(r) * TM + col);
+          *reinterpret_cast<Vec*>(to) = *reinterpret_cast<const Vec*>(bs + binrow(r) * TM + col);
         else
           *to = bs[binrow(r) * TM + col];
       }
       to = dw + (wsrc - w) + (long long)l * W + row0 * plane;
       for (int k = row0; k < 5; k += rstep, to += rstep * plane) {
         if (vec)
-          *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(ws + (5 + k) * TM + col);
+          *reinterpret_cast<Vec*>(to) = *reinterpret_cast<const Vec*>(ws + (5 + k) * TM + col);
         else
           *to = ws[(5 + k) * TM + col];
       }
@@ -489,10 +507,14 @@ sga_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
   constexpr int EPU = 4 / sizeof(T);  // elements of a unit
   constexpr int P = S + EPU;          // row pitch, elements: U + 1 words
   constexpr int DP = 32 * B;          // bin rows of a volume
-  constexpr int CH = B == 4 ? 4 : 8;  // steps of a chunk held in registers
+  constexpr int CH = B >= 8 ? 2 : B == 4 ? 4 : 8;  // steps of a chunk held in registers
   constexpr int CW = CH * sizeof(T) / 4;  // words of a chunk of a row
   static_assert(U <= 32 && 32 % U == 0, "a warp copies whole rows");
   static_assert(S % CH == 0, "a stage is whole chunks");
+  // Accumulating, the old dx is held one chunk ahead like gbar up to 4 bins
+  // a lane; above, each lane reads it at its use (the registers of both
+  // would spill).
+  constexpr bool OLD_AHEAD = ACC && B <= 4;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int column = blockIdx.x;
@@ -576,7 +598,7 @@ sga_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
       if (dlo + i >= D) continue;
       const long long row = base + (long long)(dlo + i) * plane;
       load_run<T, CH>(gbn[i], gbar + row, c0, W, wide, vec);
-      if (ACC) load_run<T, CH>(odn[i], dx + row, c0, W, wide, vec);
+      if (OLD_AHEAD) load_run<T, CH>(odn[i], dx + row, c0, W, wide, vec);
     }
   };
 
@@ -628,7 +650,12 @@ sga_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
               [&](int i) { return to_f32(xs[at(i)]); },
               [&](int i) { return to_f32(as[at(i) + ash]); },
               [&](int d) { return to_f32(as[binrow(d) * P + j + ash]); },
-              [&](int i) { return reverse ? unpack<T>(od[i], kk) : unpack<T>(od[i], CH - 1 - kk); },
+              [&](int i) {
+                if constexpr (OLD_AHEAD)
+                  return reverse ? unpack<T>(od[i], kk) : unpack<T>(od[i], CH - 1 - kk);
+                else
+                  return to_f32(dx[base + (long long)(dlo + i) * plane + c0 + k]);
+              },
               [&](int i, float v) { xs[at(i)] = from_f32<T>(v); },
               [&](int r, float v) { ws[(5 + r) * P + j] = from_f32<T>(v); });
         }
@@ -682,11 +709,13 @@ bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) %
   if (D <= 32) return CALL(2, 16);  \
   if (D <= 64) return CALL(2, 32);  \
   if (D <= 128) return CALL(4, 32); \
+  if (D <= 256) return CALL(8, 32); \
   return cudaErrorInvalidValue;
 #define SGA_BWD_BY_D_W(CALL)        \
   if (D <= 32) return CALL(32, 1);  \
   if (D <= 64) return CALL(32, 2);  \
   if (D <= 128) return CALL(32, 4); \
+  if (D <= 256) return CALL(32, 8); \
   return cudaErrorInvalidValue;
 
 template <typename T, bool AW, int G, int B>
@@ -698,7 +727,7 @@ Plan plan(const void* const (&ptrs)[6], int N, int D, int H, int W, int accumula
   p.warps_per_block = 1;
   const int elem = sizeof(T);
   const int vols = 3 + accumulate;
-  const int bytes = AW ? 4 : kCopy;  // one copy
+  const int bytes = AW ? 4 : copy_bytes_h<T, G>();  // one copy
   p.vec = (W * elem) % bytes == 0 && (w_nstride * elem) % bytes == 0;
   for (const void* q : ptrs) p.vec = p.vec && aligned(q, bytes);
   // Along W gbar and the old dx go to registers by 16-byte loads where
@@ -812,8 +841,8 @@ cudaError_t dispatch_describe(const void* const (&ptrs)[6], int N, int D, int H,
 
 extern "C" {
 
-// Largest D one launch takes (4 lanes x 32 bins along H, 32 x 4 along W).
-int sga_sweep_bwd_max_d() { return 128; }
+// Largest D one launch takes (8 lanes x 32 bins along H, 32 x 8 along W).
+int sga_sweep_bwd_max_d() { return 256; }
 
 // x, a (the forward's output), gbar, dx: (N, D, H, W); w, dw: this
 // direction's (N, 5, H, W) weights and their gradient with a stride of

@@ -41,13 +41,14 @@
 //    Results are written over the consumed x of the stage and leave it as
 //    whole rows of memory.
 //  * Sweeps along H (l = h): a column group is G lanes, at most 16 bins a
-//    lane up to D = 32 and 32 above (2 x 32 at D = 64), and a warp owns
-//    32/G columns adjacent along W, so a stage is one step: D rows of x
-//    (and D of running max) plus 5 weight rows of 32/G contiguous elements
-//    (32 bytes in bf16 at D = 64), copied 16 bytes at a time.  4 stages, 3
+//    lane up to D = 32 and 32 above (2 x 32 at D = 64, 8 x 32 at D = 256),
+//    and a warp owns 32/G columns adjacent along W, so a stage is one step:
+//    D rows of x (and D of running max) plus 5 weight rows of 32/G
+//    contiguous elements (32 bytes in bf16 at D = 64), copied 16 bytes at a
+//    time (8 where a row is 8 bytes: bf16 at G = 8).  4 stages, 3
 //    steps in flight; 2 warps a block.  Rows of bin d sit at
 //    (d % B) * G + d / B so the lanes of a warp read one contiguous span;
-//    outputs go back as 16-byte stores.  Measured on an H100 80GB HBM3 at
+//    outputs go back as stores of one copy's width.  Measured on an H100 80GB HBM3 at
 //    700 W (chip_smoke.py phase 2, full-res block, bf16, storing): 4 lanes
 //    x 16 bins, whose rows are 16 bytes, took 0.737 ms a launch; 2 x 32
 //    took 0.353 ms.
@@ -68,10 +69,12 @@
 //    max of an accumulating launch is not staged: each lane loads its
 //    stage's 4-byte units of it into registers while the stage is
 //    computed and takes the max at the store, which keeps as many columns
-//    in flight as a storing launch.
+//    in flight as a storing launch.  Above D = 128 (8 bins a lane) those
+//    units would take 256 registers a lane, so there the lane reads each
+//    unit of the running max at its store instead.
 //  * Alignment.  The weights of direction k start k*5*H*W elements in, and
 //    a row starts at an odd element when W is odd.  Each sweep has two
-//    staging paths: vectorised (16-byte copies and stores along H, 4-byte
+//    staging paths: vectorised (copies and stores of 16 bytes, or 8, along H, 4-byte
 //    copies and stores along W) when x, w and out and every row start are
 //    aligned to the copy, as at every shape of the model's paths;
 //    element-wise (`ld.global` -> `st.shared`, one element a copy, and
@@ -91,6 +94,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -99,7 +104,14 @@ constexpr int kStagesH = 4;   // steps in a warp's ring, sweeps along H
 constexpr int kWarpsW = 1;    // warps per block, sweeps along W
 constexpr int kStagesW = 2;   // stages in a warp's ring, sweeps along W
 constexpr int kRunW = 128;    // bytes of a row a W-sweep stage holds
-constexpr int kCopy = 16;     // bytes of one copy along H
+constexpr int kCopy = 16;     // bytes of one copy along H, at most
+
+// Bytes of one copy along H: 16, or a whole row of the 32/G columns a warp
+// owns where that is less (8 bytes in bf16 at G = 8).
+template <typename T, int G>
+__host__ __device__ constexpr int copy_bytes_h() {
+  return (32 / G) * (int)sizeof(T) < kCopy ? (32 / G) * (int)sizeof(T) : kCopy;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -109,9 +121,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+// An asynchronous copy of BYTES (16 or 8) from global to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_h(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -182,9 +200,11 @@ sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
                    int D, int H, int W, long long w_nstride, int reverse, int accumulate, int vec) {
   constexpr int TM = 32 / G;             // columns a warp owns
   constexpr int DP = G * B;              // bin rows a stage holds
-  constexpr int EPC = kCopy / sizeof(T); // elements of one 16-byte copy
+  constexpr int CB = copy_bytes_h<T, G>(); // bytes of one copy
+  constexpr int EPC = CB / sizeof(T);    // elements of one copy
   constexpr int CPR = TM / EPC;          // copies per row
-  static_assert(CPR >= 1 && TM % EPC == 0, "a row is whole 16-byte copies");
+  static_assert(CPR >= 1 && TM % EPC == 0, "a row is whole copies");
+  using Vec = std::conditional_t<CB == 16, uint4, uint2>;  // one copy's bytes
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tiles = (W + TM - 1) / TM;
@@ -218,7 +238,7 @@ sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
       for (int q = lane; q < (xrows + 5) * CPR; q += 32) {
         const int r = q / CPR, col = (q % CPR) * EPC;
         if (m0 + col < W)  // whole copies: W is a multiple of EPC
-          cp_async16(st + srow(r) * TM + col, grow(r) + off + col);
+          cp_async_h<CB>(st + srow(r) * TM + col, grow(r) + off + col);
       }
     } else {
       for (int q = lane; q < (xrows + 5) * TM; q += 32) {
@@ -260,8 +280,8 @@ sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
       for (int q = lane; q < D * CPR; q += 32) {
         const int d = q / CPR, col = (q % CPR) * EPC;
         if (m0 + col < W)
-          *reinterpret_cast<uint4*>(dst + d * plane + col) =
-              *reinterpret_cast<const uint4*>(st + srow(d) * TM + col);
+          *reinterpret_cast<Vec*>(dst + d * plane + col) =
+              *reinterpret_cast<const Vec*>(st + srow(d) * TM + col);
       }
     } else {
       for (int q = lane; q < D * TM; q += 32) {
@@ -279,7 +299,8 @@ sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
 // rows of S elements at a pitch of kRunW + 4 bytes: 32*B rows of x (bin d
 // at row (d % B) * 32 + d / B), then 5 weight rows.  When accumulating,
 // the running max of a stage is loaded into registers (KU 4-byte units a
-// lane) while the stage is computed, and taken at the store.
+// lane) while the stage is computed, and taken at the store; above 4 bins a
+// lane (HOLD false) each unit is read at its store instead.
 template <typename T, int B>
 __global__ void __launch_bounds__(32 * kWarpsW)
 sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int N,
@@ -290,6 +311,7 @@ sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
   constexpr int P = (kRunW + 4) / sizeof(T); // row pitch, elements
   constexpr int DP = 32 * B;                 // bin rows a stage holds
   constexpr int KU = B * U;                  // units of a stage's rows a lane stores
+  constexpr bool HOLD = KU <= 128;           // the running max held in registers
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int warp = blockIdx.x * kWarpsW + threadIdx.x / 32;
@@ -350,12 +372,14 @@ sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
     cp_async_commit();
     const int l0 = first_col(t), nl = min(S, W - l0);
     T* dst = on + l0;
-    uint32_t old[KU];  // the running max of this stage's units, in flight
-    if (accumulate && vec) {
+    uint32_t old[HOLD ? KU : 1];  // the running max of this stage's units, in flight
+    if constexpr (HOLD) {
+      if (accumulate && vec) {
 #pragma unroll
-      for (int m = 0; m < KU; ++m) {
-        const int q = g + 32 * m, r = q / U, e = (q % U) * EPU;
-        if (q < D * U && e < nl) old[m] = *reinterpret_cast<const uint32_t*>(dst + r * plane + e);
+        for (int m = 0; m < KU; ++m) {
+          const int q = g + 32 * m, r = q / U, e = (q % U) * EPU;
+          if (q < D * U && e < nl) old[m] = *reinterpret_cast<const uint32_t*>(dst + r * plane + e);
+        }
       }
     }
     cp_async_wait<kStagesW - 1>();
@@ -380,8 +404,13 @@ sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
         const int q = g + 32 * m, r = q / U, e = (q % U) * EPU;
         if (q < D * U && e < nl) {
           uint32_t v = *reinterpret_cast<const uint32_t*>(st + srow(r) * P + e);
-          if (accumulate) v = umax(v, old[m]);
-          *reinterpret_cast<uint32_t*>(dst + r * plane + e) = v;
+          uint32_t* to = reinterpret_cast<uint32_t*>(dst + r * plane + e);
+          if constexpr (HOLD) {
+            if (accumulate) v = umax(v, old[m]);
+          } else {
+            if (accumulate) v = umax(v, *to);
+          }
+          *to = v;
         }
       }
     } else {
@@ -415,11 +444,13 @@ bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) %
   if (D <= 32) return CALL(2, 16);  \
   if (D <= 64) return CALL(2, 32);  \
   if (D <= 128) return CALL(4, 32); \
+  if (D <= 256) return CALL(8, 32); \
   return cudaErrorInvalidValue;
 #define SGA_BY_D_W(CALL)            \
   if (D <= 32) return CALL(32, 1);  \
   if (D <= 64) return CALL(32, 2);  \
   if (D <= 128) return CALL(32, 4); \
+  if (D <= 256) return CALL(32, 8); \
   return cudaErrorInvalidValue;
 
 template <typename T, int G, int B>
@@ -438,9 +469,9 @@ Plan plan(const void* x, const void* w, const void* out, int N, int D, int H, in
     p.smem = (size_t)kWarpsW * kStagesW * (32 * B + 5) * (kRunW + 4);
     p.blocks = (int)(((long long)N * H + kWarpsW - 1) / kWarpsW);
   } else {
-    const int TM = 32 / G;
-    p.vec = aligned(x, kCopy) && aligned(w, kCopy) && aligned(out, kCopy) &&
-            (W * sizeof(T)) % kCopy == 0 && (w_nstride * (long long)sizeof(T)) % kCopy == 0;
+    const int TM = 32 / G, cb = copy_bytes_h<T, G>();
+    p.vec = aligned(x, cb) && aligned(w, cb) && aligned(out, cb) && (W * sizeof(T)) % cb == 0 &&
+            (w_nstride * (long long)sizeof(T)) % cb == 0;
     p.steps = 1;
     p.stages = kStagesH;
     p.warps_per_block = kWarpsH;
@@ -520,8 +551,8 @@ cudaError_t dispatch_describe(const void* x, const void* w, const void* out, int
 
 extern "C" {
 
-// Largest D one launch takes (4 lanes x 32 bins along H, 32 x 4 along W).
-int sga_sweep_max_d() { return 128; }
+// Largest D one launch takes (8 lanes x 32 bins along H, 32 x 8 along W).
+int sga_sweep_max_d() { return 256; }
 
 // x, out: (N, D, H, W); w: this direction's (N, 5, H, W) weights with a
 // stride of w_nstride elements between consecutive n.  dtype 0 = float32,

@@ -6,11 +6,14 @@ convs (kernel 4, stride 2) equal PyTorch's ConvTranspose with padding 1
 once the weight bridge has flipped the kernel (see `convert.py`).
 
 Parameters stay float32; every layer casts its weights to the input's
-dtype, so a bfloat16 input runs the conv and BatchNorm in bfloat16, as the
-JAX package's `compute_dtype` does.  BatchNorm runs with its running
-statistics (the eval forward), as the per-channel affine
-x * s + t with s = scale / sqrt(var + eps) and t = bias - mean * s, taken
-in float32 and cast to the input's dtype.
+dtype, so a bfloat16 input runs the conv in bfloat16 and rounds its output
+to bfloat16, as the JAX package's `compute_dtype` does.  BatchNorm with its
+running statistics (the eval forward) is the per-channel affine x * s + t
+with s = scale / sqrt(var + eps) and t = bias - mean * s, rounded where
+the JAX package rounds it: after a 3D conv it is folded into the conv (the
+weights times s in float32, then + t in the input's dtype, as its
+`FoldableBN`), elsewhere taken in float32 and rounded once, as flax's
+`BatchNorm`.
 
 Submodules are named `conv` and `bn`; containers keep the JAX package's
 child names (`BasicConv_0`, `Conv2x_1`, ...) so that the weight bridge maps
@@ -47,12 +50,22 @@ def same_padding(
     return pads
 
 
-def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
-    """Eval-mode BatchNorm over dim 1 in the input's dtype."""
+def bn_affine(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, t), float32, such that eval-mode BatchNorm is x * s + t:
+    s = scale / sqrt(var + eps), t = bias - mean * s."""
     s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
-    t = bn.bias - bn.running_mean * s
+    return s, bn.bias - bn.running_mean * s
+
+
+def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """Eval-mode BatchNorm over dim 1 rounded where flax's `BatchNorm`
+    rounds: x * s + t taken in float32 (float64 for a float64 input) and
+    rounded to the input's dtype once."""
+    s, t = bn_affine(bn)
     shape = (1, -1) + (1,) * (x.dim() - 2)
-    return x * s.to(x.dtype).view(shape) + t.to(x.dtype).view(shape)
+    dt = at_least_f32(x).dtype
+    s, t = s.to(dt).view(shape), t.to(dt).view(shape)
+    return torch.addcmul(t, x, s).to(x.dtype)
 
 
 def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
@@ -80,11 +93,17 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
     return bn_train(x, bn) if bn.training else bn_eval(x, bn)
 
 
-def conv_same(x: torch.Tensor, conv: nn.Module, stride: int = 1) -> torch.Tensor:
-    """`conv`'s weights applied with "SAME" padding in the input's dtype."""
+def conv_same(
+    x: torch.Tensor, conv: nn.Module, stride: int = 1, scale: torch.Tensor | None = None
+) -> torch.Tensor:
+    """`conv`'s weights applied with "SAME" padding in the input's dtype;
+    with `scale`, each output channel's weights times it first, in float32."""
     k = conv.weight.shape[-1]
     pads = same_padding(x.shape[2:], k, stride)
-    weight = conv.weight.to(x.dtype)
+    weight = conv.weight
+    if scale is not None:
+        weight = weight * scale.view((-1,) + (1,) * (weight.dim() - 1))
+    weight = weight.to(x.dtype)
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     fn = F.conv3d if x.dim() == 5 else F.conv2d
     if all(lo == hi for lo, hi in pads):
@@ -127,6 +146,14 @@ class BasicConv(nn.Module):
             bias = None if self.conv.bias is None else self.conv.bias.to(x.dtype)
             fn = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d
             x = fn(x, self.conv.weight.to(x.dtype), bias, stride=2, padding=1)
+        elif x.dim() == 5 and self.bn is not None and not self.bn.training:
+            # An eval BatchNorm after a 3D conv is folded into the conv, as
+            # the JAX package's FoldableBN does: weights times s in float32,
+            # then + t in the input's dtype.
+            s, t = bn_affine(self.bn)
+            x = conv_same(x, self.conv, self.stride, scale=s)
+            x = x + t.to(x.dtype).view(1, -1, 1, 1, 1)
+            return F.relu(x) if self.relu else x
         else:
             x = conv_same(x, self.conv, self.stride)
         if self.bn is not None:

@@ -50,6 +50,13 @@ from ganet_tpu_torch.ops.normalize import at_least_f32
 
 # (axis, reverse) of each direction, in the order above.
 DIRECTIONS = (("w", False), ("w", True), ("h", False), ("h", True))
+
+# The largest D that one launch of K1 or K3 takes: 8 lanes x 32 bins a column
+# along H, 32 x 8 along W.  It equals `sga_sweep_max_d` and
+# `sga_sweep_bwd_max_d` of the kernels' libraries (a `gpu` test holds them
+# to it).  The model's SGA volume has D = max_disp / 3, so it caps max_disp
+# at 3 * SGA_MAX_D on the kernels (`entry.build_model` checks).
+SGA_MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -330,9 +337,9 @@ def sga_sweep_kernel(
         raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
     if w.device != x.device:
         raise ValueError("x and w must be on one device")
+    if D > SGA_MAX_D:
+        raise ValueError(f"sga kernel takes D <= {SGA_MAX_D}, got {D}")
     lib = _lib()
-    if D > lib.sga_sweep_max_d():
-        raise ValueError(f"sga kernel takes D <= {lib.sga_sweep_max_d()}, got {D}")
     accumulate = out is not None
     if accumulate:
         if out.shape != x.shape or out.dtype != x.dtype or not out.is_contiguous():
@@ -420,9 +427,9 @@ def sga_sweep_bwd_kernel(
     w_offset, w_nstride = weight_slot(w, x, direction)
     if axis not in ("h", "w"):
         raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
+    if D > SGA_MAX_D:
+        raise ValueError(f"sga bwd kernel takes D <= {SGA_MAX_D}, got {D}")
     lib = _bwd_lib()
-    if D > lib.sga_sweep_bwd_max_d():
-        raise ValueError(f"sga bwd kernel takes D <= {lib.sga_sweep_bwd_max_d()}, got {D}")
     accumulate = dx is not None
     if accumulate:
         if dx.shape != x.shape or dx.dtype != x.dtype or not dx.is_contiguous():

@@ -1,0 +1,1 @@
+"""Utilities of the port: timing on the card."""

@@ -15,13 +15,19 @@ px).  A bf16 fault of the port (a tensor left in f32, a reduction in bf16,
 a rounding step too many) moves the left side by whole multiples of the
 right.
 
-Probe behind the factor (on the CPU, 48x96, D=24, converted
-seeded weights): GANet_small 0.124 px against JAX's own 0.108 px (1.15),
-GANet_deep 0.154 against 0.120 px (1.28).  Measured by this file on the
-CPU (`-s` prints them): BasicConv 1.004, SGABlock 1.143, DispAggHead
-0.616 (the port's head is closer to JAX f32 than JAX's own bf16 head),
-GANet_small 1.147, GANet_deep 1.289.  Why the deep model's factor is the
-largest is not explained yet.
+Measured by this file on the CPU (`-s` prints them): BasicConv 0.843,
+SGABlock 0.889, DispAggHead 0.616 (the port's head is closer to JAX f32
+than JAX's own bf16 head), GANet_small 0.917, GANet_deep 1.164.  Before
+the eval BatchNorm took JAX's rounding (flax's `BatchNorm` in float32,
+rounded once; the BatchNorm of a 3D conv folded into its weights, as
+`FoldableBN` does), where the port had rounded s, t, the product and the
+sum in bf16, they were 1.004, 1.143, 0.616, 1.147 and 1.289.  GANet_deep's
+remaining excess is XLA's, not the port's: XLA may keep a value in
+float32 where the program rounds it to bf16
+(`--xla_allow_excess_precision`, on by default), and skips the rounding of
+a conv's output before its BatchNorm; with that flag off JAX's feature net
+and the port's agree (factor 1.00 at its first conv) and the deep model's
+factor is 0.91.
 """
 
 import jax
@@ -36,7 +42,7 @@ from ganet_tpu.models.aggregation import DispAggHead as JDispAggHead
 from ganet_tpu.models.aggregation import SGABlock as JSGABlock
 from ganet_tpu.models.ganet import GANet as JGANet
 from ganet_tpu.models.layers import BasicConv as JBasicConv
-from ganet_tpu_torch import build_model, predict
+from ganet_tpu_torch.entry import build_model, predict
 from ganet_tpu_torch.config import ganet_deep, ganet_small
 from ganet_tpu_torch.convert import convert_flax_variables
 from ganet_tpu_torch.models import BasicConv, SGABlock

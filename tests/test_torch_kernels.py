@@ -64,15 +64,40 @@ def test_sga_sweeps_and_fused(cuda, shape, dtype):
 
 
 # K1's staging: D across the splits of its bins over lanes (1, 2, 16, 33, 64,
-# 65, 128), sweep lengths below, at and one past the H-sweep ring (4 steps)
-# and a W-sweep stage (32 steps in float32, 64 in bfloat16), and a prime.
-# Along H, W = 40 (16-byte rows: vectorised staging) and W = 37 (odd:
-# element-wise staging, with the direction's weight offset); along W, the
-# staging is vectorised (4-byte units) unless a bfloat16 row is odd.
+# 65, 128, and the top rung's 129, 192 and SGA_MAX_D = 256), sweep lengths
+# below, at and one past the H-sweep ring (4 steps) and a W-sweep stage (32
+# steps in float32, 64 in bfloat16), and a prime.  Along H, W = 40 (whole
+# copies: vectorised staging) and W = 37 (odd: element-wise staging, with
+# the direction's weight offset); along W, the staging is vectorised (4-byte
+# units) unless a bfloat16 row is odd.
 K1_LENGTHS = (1, 4, 5, 13, 32, 33, 64, 65)
+SGA_DS = [1, 2, 16, 33, 64, 65, 128, 129, 192, 256]
 
 
-@pytest.mark.parametrize("D", [1, 2, 16, 33, 64, 65, 128])
+def _vectorised(axis, D, W, elem):
+    """Whether K1 and K3 stage a sweep by whole copies: 4-byte units along
+    W; along H 16-byte copies, or whole 8-byte rows where a warp's 32/G
+    columns are 8 bytes (bfloat16 at G = 8 lanes a column, D > 128)."""
+    if axis == "w":
+        return (W * elem) % 4 == 0
+    return (W * elem) % (8 if D > 128 and elem == 2 else 16) == 0
+
+
+def test_sga_max_d_is_the_kernels(cuda):
+    """The Python limit is what the libraries of K1 and K3 report, and the
+    wrappers refuse one bin more."""
+    assert S._lib().sga_sweep_max_d() == S.SGA_MAX_D
+    assert S._bwd_lib().sga_sweep_bwd_max_d() == S.SGA_MAX_D
+    D = S.SGA_MAX_D + 1
+    x = torch.zeros((1, D, 2, 8), device="cuda")
+    w = torch.zeros((1, 5, 2, 8), device="cuda")
+    with pytest.raises(ValueError, match=str(S.SGA_MAX_D)):
+        S.sga_sweep_kernel(x, w, "h", False)
+    with pytest.raises(ValueError, match=str(S.SGA_MAX_D)):
+        S.sga_sweep_bwd_kernel(x, w, x, x, "h", False)
+
+
+@pytest.mark.parametrize("D", SGA_DS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sga_sweep_kernel_staging(cuda, D, dtype):
     N = 2
@@ -83,12 +108,13 @@ def test_sga_sweep_kernel_staging(cuda, D, dtype):
                 x = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
                 w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda), dim=2).to(dtype)
                 prev = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
-                vec = (W * x.element_size()) % (4 if axis == "w" else 16) == 0
+                vec = _vectorised(axis, D, W, x.element_size())
                 for direction, (ax, reverse) in enumerate(S.DIRECTIONS):
                     if ax != axis:
                         continue
-                    info = S.sga_describe(x, w, axis, direction, False)
-                    assert info["vectorised"] == int(vec) and info["local_bytes"] == 0, info
+                    for accumulate in (False, True):
+                        info = S.sga_describe(x, w, axis, direction, accumulate)
+                        assert info["vectorised"] == int(vec) and info["local_bytes"] == 0, info
                     ref = S.sga_sweep_plain(x, w[:, direction], axis, reverse).to(dtype)
                     got = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction)
                     _close(got, ref)
@@ -169,7 +195,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         S.sga_sweep_kernel(x, w[:, :4], "h", False)
     with pytest.raises(ValueError):
-        S.sga_sweep_kernel(torch.randn((1, 200, 4, 4), device="cuda"), torch.randn((1, 5, 4, 4), device="cuda"), "w", False)
+        D = S.SGA_MAX_D + 1
+        S.sga_sweep_kernel(torch.randn((1, D, 4, 4), device="cuda"), torch.randn((1, 5, 4, 4), device="cuda"), "w", False)
     g = torch.randn((2, 75, 6, 8), device="cuda")
     with pytest.raises(TypeError):
         G.lga_kernel(x, g.bfloat16(), 2)
@@ -189,7 +216,8 @@ def test_launch_counts(cuda):
 
 
 def test_model_kernels_match_plain(cuda):
-    from ganet_tpu_torch import build_model, ganet_small, predict
+    from ganet_tpu_torch import ganet_small
+    from ganet_tpu_torch.entry import build_model, predict
 
     left = torch.rand((1, 48, 96, 3), device="cuda", generator=cuda)
     right = torch.rand((1, 48, 96, 3), device="cuda", generator=cuda)
@@ -201,6 +229,20 @@ def test_model_kernels_match_plain(cuda):
     # float32 noise of the whole forward (about 4e-4 px at this shape on the
     # CPU); the kernels and cuDNN sum in other orders.
     assert (outs[0] - outs[1]).abs().max().item() <= 5e-3
+
+
+def test_predict_does_not_depend_on_the_input_strides(cuda):
+    """A numpy image[None] has a batch stride of 0; the disparity is the
+    same bits as for the same values stacked."""
+    import numpy as np
+
+    from ganet_tpu_torch import ganet_small
+    from ganet_tpu_torch.entry import build_model, predict
+
+    image = np.random.default_rng(0).random((2, 96, 192, 3), dtype=np.float32)
+    model = build_model(ganet_small(24, compute_dtype="bfloat16"), device="cuda")
+    assert torch.equal(predict(model, image[0][None], image[1][None]),
+                       predict(model, np.stack([image[0]]), np.stack([image[1]])))
 
 
 # (N, D, H, W) of the gradient kernels: D not a multiple of 32 (or of the
@@ -246,7 +288,7 @@ def _bwd_refs(x, w, a, gbar, axis, reverse):
     return S.sga_sweep_bwd_plain(x.float(), w.float(), a.float(), gbar.float(), axis, reverse)
 
 
-# K3's staging: D across the splits of its bins over lanes, sweep lengths
+# K3's staging: D across the splits of its bins over lanes (SGA_DS), sweep lengths
 # below, at and past the H-sweep ring and the W-sweep stages (16 to 64
 # steps), and a prime; W = 40 and 37 across H sweeps (vectorised and, odd,
 # element-wise staging, with the direction's weight offset), H = 40 and 37
@@ -254,7 +296,7 @@ def _bwd_refs(x, w, a, gbar, axis, reverse):
 # the direction's own weights and with the (N, 4, 5, H, W) set, and
 # accumulating into a random dx, which the kernel adds in float32 and
 # rounds once.
-@pytest.mark.parametrize("D", [1, 2, 16, 33, 64, 65, 128])
+@pytest.mark.parametrize("D", SGA_DS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sga_bwd_kernel_staging(cuda, D, dtype):
     N = 2
@@ -266,7 +308,7 @@ def test_sga_bwd_kernel_staging(cuda, D, dtype):
                 w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda), dim=2).to(dtype)
                 gbar = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
                 prev = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
-                vec = (W * x.element_size()) % (4 if axis == "w" else 16) == 0
+                vec = _vectorised(axis, D, W, x.element_size())
                 for direction, (ax, reverse) in enumerate(S.DIRECTIONS):
                     if ax != axis:
                         continue

@@ -22,7 +22,7 @@ import numpy as np
 
 from ganet_tpu.config import ganet_deep as j_ganet_deep
 from ganet_tpu.models.ganet import GANet as JGANet
-from ganet_tpu_torch import build_model, predict
+from ganet_tpu_torch.entry import build_model, predict
 from ganet_tpu_torch.config import ganet_deep
 from ganet_tpu_torch.convert import convert_flax_variables
 from tests.torch_parity import ganet_parity, seeded_variables

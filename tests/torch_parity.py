@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ganet_tpu.models.ganet import GANet as JGANet
-from ganet_tpu_torch import build_model, predict
+from ganet_tpu_torch.entry import build_model, predict
 from ganet_tpu_torch.convert import convert_flax_variables
 
 
