@@ -61,10 +61,13 @@ CUDA toolkit.  Phases, each printing its lines:
      the H sweeps: difference, argmax flips, and the unsharded gradient on
      K5's sweeps against the sharded one);
  13. the channel-wise LGA (`lga3d`) path: its forward kernel (K7) at one
-     channel per guidance against its plain version and against K2 at the
-     eval head; `lga3d` forward at GANet_deep's full-res aggregation volume
-     and forward and backward (K7, K4) at the training crop's, against the
-     plain versions, with the launches of each run counted;
+     channel per guidance against its plain version and, bit for bit,
+     against K2 at the eval head; `lga3d` forward at GANet_deep's full-res
+     aggregation volume and forward and backward (K7, K4) at the training
+     crop's, against the plain versions, with the launches of each run
+     counted; K7's time at both volumes beside its bound, its registers,
+     shared and local memory (none), blocks an SM and channel groups, and
+     the instructions of its chunk loop in SASS;
  14. the from-files path: a seeded KITTI-2015-shaped frame (375x1242 RGB
      PNGs and a ground-truth disparity PNG, written by the port's PNG
      writer, their read and write times printed) and a checkpoint saved
@@ -332,11 +335,15 @@ def lga_bound(numel: int, n_guidance: int, elem: int):
 
 
 def lga_describe_line(info: dict) -> str:
-    """One line of K2's `lga_describe` or K4's `lga_bwd_describe` fields (ops/lga.py)."""
-    return (f"{info['registers']} registers, {info['static_shared_bytes']} B static + "
+    """One line of K2's `lga_describe`, K4's `lga_bwd_describe` or K7's
+    `lga3d_describe` fields (ops/lga.py)."""
+    line = (f"{info['registers']} registers, {info['static_shared_bytes']} B static + "
             f"{info['dynamic_shared_bytes']} B dynamic shared a block, {info['local_bytes']} B local, "
             f"{info['blocks_per_sm']} blocks an SM of {info['threads']} threads, tile "
             f"{info['tile_h']}x{info['tile_w']}, {info['chunk']} slices a chunk, {info['blocks']} blocks")
+    if "group" in info:
+        line += f" ({info['groups']} groups of up to {info['group']} channels a tile)"
+    return line
 
 
 def sass_chunk_loops(lib_path) -> dict:
@@ -1207,16 +1214,34 @@ def expect_launches(torch, S, G, tag: str, want: dict) -> dict:
     return got
 
 
+# Launches a K7 timing averages over (and K2's beside it in phase 13): 50 at
+# about 0.6 ms is a 30 ms window, which one slow stretch of the card moves
+# less than it moves a 6 ms one.
+K7_REPS = 50
+
+
+def k7_describe(G, tag: str, xf, r: int, gdiv: int, spills: list) -> None:
+    """Print K7's describe line for a launch on the fold xf; a launch that
+    uses local memory goes into `spills`, for phase 13 to fail on once every
+    time has been printed."""
+    info = G.lga3d_describe(xf, r, gdiv)
+    log(f"  {tag}: {lga_describe_line(info)}")
+    if info["local_bytes"]:
+        spills.append(f"{tag}: K7 uses local memory: {info}")
+
+
 def phase_lga3d(torch, gen, smi):
-    """K7 at one channel per guidance (K2's function) at the eval head; the
-    `lga3d` path at GANet_deep's full-res volume and at the training crop's;
-    returns K7's JSON entry (one bf16 pass over the full-res volume)."""
+    """K7 at one channel per guidance (K2's function, bit for bit) at the
+    eval head; the `lga3d` path at GANet_deep's full-res volume and at the
+    training crop's, with K7 timed beside its bound at both; returns K7's
+    JSON entry (one bf16 pass over the full-res volume)."""
     from ganet_tpu_torch.ops import dispatch
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
     r = 2
+    spills = []
     # (i) gdiv 1 at the eval head (1, 192, 576, 960): K7 against its plain version and K2.
     x32 = torch.randn((1, 192, 576, 960), device="cuda", generator=gen)
     g32 = l1_normalize(torch.randn((1, 75, 576, 960), device="cuda", generator=gen), dim=1)
@@ -1225,10 +1250,12 @@ def phase_lga3d(torch, gen, smi):
         tag = f"lga3d_fwd gdiv 1 {tuple(x.shape)} r{r} {str(dtype)[6:]}"
         got = G.lga3d_kernel(x, g, r, 1)
         compare(torch, f"{tag} vs plain", got, G.lga3d_fwd_plain(x, g, r, 1).to(dtype))
-        compare(torch, f"{tag} vs K2", got, G.lga_kernel(x, g, r))
+        if not torch.equal(got, G.lga_kernel(x, g, r)):
+            raise AssertionError(f"{tag}: K7 at gdiv 1 differs from K2")
+        log(f"  {tag}: equal to K2 bit for bit")
         del got
-        k7_ms = cuda_ms(torch, lambda: G.lga3d_kernel(x, g, r, 1), reps=10)
-        k2_ms = cuda_ms(torch, lambda: G.lga_kernel(x, g, r), reps=10)
+        k7_ms = cuda_ms(torch, lambda: G.lga3d_kernel(x, g, r, 1), reps=K7_REPS)
+        k2_ms = cuda_ms(torch, lambda: G.lga_kernel(x, g, r), reps=K7_REPS)
         bound_ms, by, _, _ = lga_bound(x.numel(), g.numel(), x.element_size())
         log(f"  {tag}: K7 {k7_ms:.3f} ms, K2 {k2_ms:.3f} ms per pass, bound {bound_ms:.3f} ms ({by}); "
             f"card {smi}")
@@ -1253,11 +1280,13 @@ def phase_lga3d(torch, gen, smi):
             errs[repeats] = compare(torch, f"{tag} repeats {repeats}", got, ref)
             del got, ref
         xf = x.view(B * C, D, H, W)
-        ms = cuda_ms(torch, lambda: G.lga3d_kernel(xf, g, r, C), reps=10)
+        ms = cuda_ms(torch, lambda: G.lga3d_kernel(xf, g, r, C), reps=K7_REPS)
         plain_ms = cuda_ms(torch, lambda: G.lga3d_fwd_plain(xf, g, r, C), reps=1)
         bound_ms, by, nbytes, flops = lga_bound(x.numel(), g.numel(), x.element_size())
         log(f"  {tag}: K7 {ms:.3f} ms per pass, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); card {smi}")
+            f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {ms / bound_ms:.2f}x the bound; "
+            f"card {smi}")
+        k7_describe(G, tag, xf, r, C, spills)
         if dtype == torch.bfloat16:
             entry = {
                 "name": "lga3d_fwd", "route": "cuda",
@@ -1270,6 +1299,12 @@ def phase_lga3d(torch, gen, smi):
         del x, g, xf
     del x32, g32
     torch.cuda.empty_cache()
+    # What bounds K7: its chunk loop in SASS, per instantiation.
+    from ganet_tpu_torch.ops import _build
+
+    for name, ops in sass_chunk_loops(_build._lib_path("lga3d_fwd")).items():
+        kind = ("bf16" if "bfloat16" in name else "f32") + (" r2" if "Li2E" in name else " r1")
+        log(f"  lga3d_fwd chunk loop {kind}: {sass_line(ops)}")
 
     # (iii) lga3d forward and backward at the training crop's volume, repeats 2,
     # through the kernels (K7, K4) and through autograd of the plain forward.
@@ -1279,6 +1314,14 @@ def phase_lga3d(torch, gen, smi):
     b32 = torch.randn((B, C, D, H, W), device="cuda", generator=gen)
     for dtype in (torch.float32, torch.bfloat16):
         x, g, gbar = x32.to(dtype), g32.to(dtype), b32.to(dtype)
+        xf = x.view(B * C, D, H, W)
+        ms = cuda_ms(torch, lambda: G.lga3d_kernel(xf, g, r, C), reps=K7_REPS)
+        bound_ms, by, _, _ = lga_bound(x.numel(), g.numel(), x.element_size())
+        tag = f"lga3d {tuple(x.shape)} r{r} {str(dtype)[6:]}"
+        log(f"  {tag}: K7 {ms:.3f} ms per pass, bound {bound_ms:.3f} ms ({by}), "
+            f"{ms / bound_ms:.2f}x the bound; card {smi}")
+        k7_describe(G, tag, xf, r, C, spills)
+        del xf
         tag = f"lga3d grad {tuple(x.shape)} r{r} repeats {repeats} {str(dtype)[6:]}"
         res = {}
         for impl in ("kernel", "torch"):
@@ -1304,6 +1347,8 @@ def phase_lga3d(torch, gen, smi):
         del x, g, gbar
     del x32, g32, b32
     torch.cuda.empty_cache()
+    if spills:
+        raise AssertionError("; ".join(spills))
     return entry
 
 

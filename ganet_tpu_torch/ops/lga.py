@@ -23,7 +23,7 @@ Channel-wise LGA (`lga3d`, the reference's Lga3dFunction): the same stencil
 on every channel of a (B, C, D, H, W) volume, with the guidance shared by
 the C channels.  The channels fold into the batch, (B*C, D, H, W), and fold
 index n reads guidance n // C.  Its forward is K7 (`csrc/lga3d_fwd.cu`),
-which reads each guidance tile once for all the channels it walks; its
+which reads each guidance tile once for all the channels a block walks; its
 backward is K4 on the fold with the guidance repeated, dg summed over C.
 """
 
@@ -224,25 +224,26 @@ lga_bwd_kernel.launches = 0
 LGA_BWD_DESCRIBE_KEYS = LGA_FWD_DESCRIBE_KEYS
 
 
-def _describe(name: str, lib, entry: str, x: torch.Tensor, radius: int) -> dict:
-    """`name`'s work: call the C entry `entry` (B, D, H, W, radius, dtype,
-    info) of the library `lib()` for a launch on a volume like x, without
-    launching.  Raises on a CPU tensor."""
+def _describe(name: str, lib, entry: str, x: torch.Tensor, radius: int, *extra: int,
+              keys: tuple = LGA_FWD_DESCRIBE_KEYS) -> dict:
+    """`name`'s work: call the C entry `entry` (B, D, H, W, *extra, radius,
+    dtype, info) of the library `lib()` for a launch on a volume like x,
+    without launching; the info array holds `keys`.  Raises on a CPU
+    tensor."""
     if not x.is_cuda:
         raise ValueError(f"{name} describes a CUDA launch, got {x.device}")
     if x.dtype not in _DTYPES or x.dim() != 4:
         raise ValueError(f"{name} takes a float32 or bfloat16 (B, D, H, W), got {x.dtype}")
     if radius not in (1, 2):
         raise ValueError(f"{name} takes radius 1 or 2, got {radius}")
-    B, D, H, W = x.shape
     fn = getattr(lib(), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    info = (ctypes.c_int * len(LGA_FWD_DESCRIBE_KEYS))()
+    fn.argtypes = [ctypes.c_int] * (6 + len(extra)) + [ctypes.c_void_p]
+    info = (ctypes.c_int * len(keys))()
     with torch.cuda.device(x.device):
-        status = fn(B, D, H, W, radius, _DTYPES[x.dtype], ctypes.addressof(info))
+        status = fn(*x.shape, *extra, radius, _DTYPES[x.dtype], ctypes.addressof(info))
     _build.check(status, entry)
-    return dict(zip(LGA_FWD_DESCRIBE_KEYS, info))
+    return dict(zip(keys, info))
 
 
 def lga_bwd_describe(x: torch.Tensor, radius: int) -> dict:
@@ -372,6 +373,21 @@ def lga3d_kernel(x: torch.Tensor, g75: torch.Tensor, radius: int, gdiv: int) -> 
 
 
 lga3d_kernel.launches = 0
+
+
+# The fields of `lga3d_describe` (the C entry `lga3d_fwd_describe`): K2's,
+# then the channels a block walks and the groups a guidance index has.
+LGA3D_FWD_DESCRIBE_KEYS = LGA_FWD_DESCRIBE_KEYS + ("group", "groups")
+
+
+def lga3d_describe(x: torch.Tensor, radius: int, gdiv: int) -> dict:
+    """What one K7 launch (`lga3d_kernel`) on a fold like x (N, D, H, W),
+    fold index n reading guidance n // gdiv, runs, without launching: the
+    fields of `LGA3D_FWD_DESCRIBE_KEYS`.  Raises on a CPU tensor."""
+    if gdiv < 1 or x.shape[0] % gdiv:
+        raise ValueError(f"gdiv {gdiv} does not divide the fold's {x.shape[0]} indices")
+    return _describe("lga3d_describe", _lga3d_lib, "lga3d_fwd_describe", x, radius, gdiv,
+                     keys=LGA3D_FWD_DESCRIBE_KEYS)
 
 
 class LGA3dFunction(torch.autograd.Function):

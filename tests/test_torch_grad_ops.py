@@ -197,3 +197,16 @@ def test_lga_fwd_kernel_has_no_atomics():
     """K2 sums in a fixed order, so its result is the same from run to run."""
     text = (Path(t_lga.__file__).resolve().parent.parent / "csrc" / "lga_fwd.cu").read_text()
     assert not re.search(r"atomic\w*\s*\(|\batom\.|\bred\.", text)
+
+
+def test_lga3d_describe_raises_on_a_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA"):
+        t_lga.lga3d_describe(torch.zeros((4, 3, 8, 16)), 2, 2)
+    with pytest.raises(ValueError, match="divide"):
+        t_lga.lga3d_describe(torch.zeros((4, 3, 8, 16)), 2, 3)
+
+
+def test_lga3d_fwd_kernel_has_no_atomics():
+    """K7 sums in K2's fixed order, so its result is the same from run to run."""
+    text = (Path(t_lga.__file__).resolve().parent.parent / "csrc" / "lga3d_fwd.cu").read_text()
+    assert not re.search(r"atomic\w*\s*\(|\batom\.|\bred\.", text)

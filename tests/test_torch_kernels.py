@@ -506,14 +506,14 @@ def test_seeded_launch_counts(cuda):
 
 
 @pytest.mark.parametrize("C", [1, 2, 5])
-@pytest.mark.parametrize("D", [1, 2, 7])
+@pytest.mark.parametrize("D", [1, 2, 5, 7, 9, 64])
 @pytest.mark.parametrize("radius", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lga3d_kernel(cuda, C, D, radius, dtype):
     """K7 on a fold of B*C indices, C reading each guidance: ragged 8x32
-    tiles, D = 1 and 2 at the ends of the slice ring, and an odd W and H*W,
-    which move bf16 rows off 4-byte boundaries from row to row and slice to
-    slice."""
+    tiles with an odd W and H*W; D = 1 and 2 (no interior chunk of 4
+    slices), 5 (one chunk and a ragged end), 7 and 9 (ragged ends) and
+    `lga3d`'s 64."""
     B, H, W = 2, 19, 45
     K = 2 * radius + 1
     x = torch.randn((B * C, D, H, W), device="cuda", generator=cuda).to(dtype)
@@ -521,35 +521,59 @@ def test_lga3d_kernel(cuda, C, D, radius, dtype):
     _close(G.lga3d_kernel(x, g, radius, C), G.lga3d_fwd_plain(x, g, radius, C).to(dtype))
 
 
-@pytest.mark.parametrize("D", [1, 4])
+# (C, H, W): 132 pixel tiles, for which the launch gives each block a group
+# of 3 channels, 5 = 3 + 2 leaving a ragged last group and 6 = 3 + 3 not.
+WALK_CASES = [(5, 83, 381), (6, 83, 381)]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("D", [1, 3, 4, 6, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lga3d_kernel_walks_channels(cuda, D, dtype):
-    """At this size the launch gives each block several channels, so a
-    block's walk crosses from slice D-1 of one channel to slice 0 of the
-    next; channels of very different scales must each equal K7 run on
-    that channel alone, bit for bit, and agree with K2 on that channel.
-    K2 sums in another order, so every channel is held to it with the
-    tolerance for summed outputs, and those of scale 3 and below also
-    element by element."""
-    C, H, W = 5, 203, 331
-    scales = torch.tensor([1e4, 1e-3, 1.0, 1e2, 3.0], device="cuda").view(C, 1, 1, 1)
+def test_lga3d_kernel_walks_channels(cuda, case, D, dtype):
+    """The launch gives each block several channels (the describe entry
+    says how many), so a block's walk crosses from slice D-1 of one channel
+    to slice 0 of the next, at D below one chunk, at a ragged and a whole
+    chunk's end; channels of very different scales must each equal K7 run
+    on that channel alone and K2 on that channel, bit for bit (K7 sums in
+    K2's order)."""
+    C, H, W = case
+    scales = torch.tensor([1e4, 1e-3, 1.0, 1e2, 3.0, 0.5][:C], device="cuda").view(C, 1, 1, 1)
     x = (torch.randn((C, D, H, W), device="cuda", generator=cuda) * scales).to(dtype)
     g = l1_normalize(torch.randn((1, 75, H, W), device="cuda", generator=cuda), dim=1).to(dtype)
+    info = G.lga3d_describe(x, 2, C)
+    assert info["group"] > 1 and info["groups"] == -(-C // info["group"]), info
+    assert (C % info["group"] != 0) == (C == 5), info
     got = G.lga3d_kernel(x, g, 2, C)
+    _close(got, G.lga3d_fwd_plain(x, g, 2, C).to(dtype), summed=True)
     for c in range(C):
         alone = x[c : c + 1].clone()  # its own storage, 4-byte aligned for K7
         assert torch.equal(got[c : c + 1], G.lga3d_kernel(alone, g, 2, 1)), c
-        k2 = G.lga_kernel(alone, g, 2)
-        _close(got[c : c + 1], k2, summed=True)
-        if scales[c].item() <= 3.0:
-            _close(got[c : c + 1], k2)
+        assert torch.equal(got[c : c + 1], G.lga_kernel(alone, g, 2)), c
 
 
+@pytest.mark.parametrize("radius", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lga3d_kernel_at_gdiv_1_is_k2(cuda, dtype):
+def test_lga3d_kernel_at_gdiv_1_is_k2(cuda, radius, dtype):
+    K = 2 * radius + 1
     x = torch.randn((2, 11, 19, 45), device="cuda", generator=cuda).to(dtype)
-    g = l1_normalize(torch.randn((2, 75, 19, 45), device="cuda", generator=cuda), dim=1).to(dtype)
-    _close(G.lga3d_kernel(x, g, 2, 1), G.lga_kernel(x, g, 2))
+    g = l1_normalize(torch.randn((2, 3 * K * K, 19, 45), device="cuda", generator=cuda), dim=1).to(dtype)
+    assert torch.equal(G.lga3d_kernel(x, g, radius, 1), G.lga_kernel(x, g, radius))
+
+
+def test_lga3d_describe_at_the_path_shapes(cuda):
+    """K7 at `lga3d`'s full-res fold (32, 64, 192, 320) and the training
+    crop's (64, 64, 80, 176), 32 channels a guidance: no local memory, the
+    two blocks an SM that its register budget aims at, and a grid of
+    `groups` groups of at most `group` channels a tile."""
+    for shape in ((32, 64, 192, 320), (64, 64, 80, 176)):
+        N, _, H, W = shape
+        tiles = -(-H // 8) * -(-W // 32) * (N // 32)
+        for dtype in (torch.float32, torch.bfloat16):
+            for radius in (1, 2):
+                info = G.lga3d_describe(torch.empty(shape, device="cuda", dtype=dtype), radius, 32)
+                assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 2, (shape, info)
+                assert info["groups"] == -(-32 // info["group"]), (shape, info)
+                assert info["blocks"] == tiles * info["groups"], (shape, info)
 
 
 def test_lga3d_gradient_through_dispatch(cuda):
