@@ -50,7 +50,11 @@ CUDA toolkit.  Phases, each printing its lines:
      plain version on a 128-column window of the per-shard full-res block,
      seeded and not, forward and reverse, float32 and bfloat16;
  11. its gradient kernel (K6) likewise at the per-shard training block,
-     with dx and dw added into and the seed's cotangent;
+     with dx and dw added into and the seed's cotangent (0 without a seed),
+     nothing written outside the window or the direction's slot; its time
+     beside its bound, its describe fields (vectorised staging, no local
+     memory) and its step loop in SASS; and at the top rungs of its D
+     (129, 192, 256) on a small window;
  12. the sharded path: 4 ranks share the card, joined by gloo (boundary
      rows staged through the host; NCCL refuses two ranks on one device),
      through `parallel/launch.py`; H-sharded SGA (wavefront) and LGA (halo)
@@ -113,12 +117,16 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of `fn` in ms over `reps` calls, after warm-up."""
+    """Mean device time of `fn` in ms over `reps` calls, after warm-up.  The
+    calls are enqueued behind a spin kernel of about 0.2 ms a call, so that
+    launches shorter than their wrapper's host time still run back to back
+    on the card and are timed at its pace, not the host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * 4e5))  # cycles: about 0.2 ms a call at 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -841,10 +849,73 @@ def phase_seeded_fwd(torch, gen):
     return entry
 
 
-def phase_seeded_bwd(torch, gen):
+# K6's rungs: D = 129, 192 and 256 on SGA_RUNG_SHAPE's volume, in the window
+# [8, 32) of its W = 40 (whole copies in both dtypes).
+K6_RUNG_WINDOW = (8, 24)
+
+
+def seeded_bwd_bound(x, cols: int):
+    """(bound ms, "bytes" or "operations", bytes) of one K6 launch on `cols`
+    columns of x: x, A, gbar and the old dx in the window, 5 weight planes,
+    the 5 old dw planes, the seed and dboundary read once; dx, 5 dw planes
+    and dseed written once (dx and dw are added into, so their old values
+    are read)."""
+    N, D, H, _ = x.shape
+    vol = N * D * H * cols
+    return window_bound(5 * vol, 2 * N * D * cols, 15 * N * H * cols + N * D * cols,
+                        x.element_size(), 25 * vol)
+
+
+def hold_k6(torch, S, x, w, seed, gbar, dbound, dx0, dw0, col0, cols, a_of, tag) -> float:
+    """K6 against its plain version on the window [col0, col0 + cols), both
+    directions, seeded and not, adding into copies of dx0 and dw0: dx, dw and
+    dseed (exactly 0 without `valid`), and nothing written outside the window
+    or the direction's slot.  a_of(direction, reverse, valid) gives the
+    forward's output.  Returns the max abs error."""
+    N, D, H, W = x.shape
+    win = slice(col0, col0 + cols)
+    outside = torch.ones((N, 1, H, W), dtype=torch.bool, device=x.device)
+    outside[..., win] = False
+    err = 0.0
+    for direction, reverse in ((2, False), (3, True)):
+        for valid in (True, False):
+            a = a_of(direction, reverse, valid)
+            dx, dw, dseed = S.sga_sweep_bwd_seeded_kernel(
+                x, w, a, gbar, reverse, seed, valid, direction=direction, col0=col0,
+                cols=cols, dboundary=dbound, dx=dx0.clone(), dw=dw0.clone())
+            # The plain version on the inputs widened to f32: its dx and dw
+            # before the rounding to dtype, which the kernel adds to the old
+            # ones in f32 and rounds once.
+            rdx, rdw, rds = S.sga_sweep_bwd_plain(
+                x[..., win].float(), w[:, direction, :, :, win].float(), a[..., win].float(),
+                gbar[..., win].float(), "h", reverse, seed.float(), valid, dbound)
+            name = f"{tag} {'bt' if reverse else 'tb'} valid={valid}"
+            err = max(err, compare(torch, f"{name} dx", dx[..., win],
+                                   (dx0[..., win].float() + rdx).to(x.dtype), summed=True))
+            err = max(err, compare(torch, f"{name} dw", dw[:, direction, :, :, win],
+                                   (dw0[:, direction, :, :, win].float() + rdw).to(x.dtype),
+                                   summed=True))
+            err = max(err, compare(torch, f"{name} dseed", dseed, rds, summed=True))
+            if not valid and bool(dseed.any()):
+                raise AssertionError(f"{name}: dseed is not 0 without a seed")
+            others = [k for k in range(4) if k != direction]
+            if not (torch.equal(dx.masked_select(outside), dx0.masked_select(outside))
+                    and torch.equal(dw[:, direction].masked_select(outside),
+                                    dw0[:, direction].masked_select(outside))
+                    and torch.equal(dw[:, others], dw0[:, others])):
+                raise AssertionError(f"{name}: the kernel wrote outside its window or slot")
+            del a, dx, dw, dseed, rdx, rdw, rds
+    return err
+
+
+def phase_seeded_bwd(torch, gen, smi):
     """K6 at the training shape's per-shard tail chunk (240x528 batch 2
-    full-res block over 4 shards: (64, 64, 20, W=176), columns 48..176);
-    returns the JSON entry (bf16, valid, one launch)."""
+    full-res block over 4 shards: (64, 64, 20, W=176), columns 48..176),
+    f32 and bf16: against its plain version, its time beside its bound, its
+    describe fields (vectorised staging, no local memory) and its step loop
+    in SASS; then at D = 129, 192 and 256 on a small window.  Returns the
+    JSON entry (bf16, valid, one launch)."""
+    from ganet_tpu_torch.ops import _build
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
@@ -858,51 +929,37 @@ def phase_seeded_bwd(torch, gen):
     dw0_32 = torch.randn((N, 4, 5, H, W), device="cuda", generator=gen)
     win = slice(col0, col0 + cols)
     entry = None
+    path = {}
     for dtype in (torch.float32, torch.bfloat16):
         x, w, seed, gbar = x32.to(dtype), w32.to(dtype), s32.to(dtype), b32.to(dtype)
+        dx0, dw0 = dx0_32.to(dtype), dw0_32.to(dtype)
         tag = f"sga_bwd_seeded {tuple(x.shape)} [{col0}:{col0 + cols}] {str(dtype)[6:]}"
-        err = 0.0
-        for direction, reverse in ((2, False), (3, True)):
-            for valid in (True, False):
-                a, _ = S.sga_sweep_seeded_kernel(x, w, reverse, seed, valid, direction=direction,
-                                                 col0=col0, cols=cols, out=torch.zeros_like(x))
-                dx0, dw0 = dx0_32.to(dtype), dw0_32.to(dtype)
-                dx, dw, dseed = S.sga_sweep_bwd_seeded_kernel(
-                    x, w, a, gbar, reverse, seed, valid, direction=direction, col0=col0,
-                    cols=cols, dboundary=dbound, dx=dx0.clone(), dw=dw0.clone())
-                rdx, rdw, rds = S.sga_sweep_bwd_plain(
-                    x[..., win], w[:, direction, :, :, win], a[..., win], gbar[..., win], "h",
-                    reverse, seed, valid, dbound)
-                name = f"{tag} {'bt' if reverse else 'tb'} valid={valid}"
-                err = max(err, compare(torch, f"{name} dx", dx[..., win],
-                                       (dx0[..., win].float() + rdx.float()).to(dtype), summed=True))
-                err = max(err, compare(torch, f"{name} dw", dw[:, direction, :, :, win],
-                                       (dw0[:, direction, :, :, win].float() + rdw.float()).to(dtype),
-                                       summed=True))
-                err = max(err, compare(torch, f"{name} dseed", dseed, rds, summed=True))
-                outside = torch.ones_like(dx, dtype=torch.bool)
-                outside[..., win] = False
-                if not (torch.equal(dx[outside], dx0[outside]) and torch.equal(
-                        dw[:, direction][outside[:, :5]], dw0[:, direction][outside[:, :5]])
-                        and torch.equal(dw[:, :2], dw0[:, :2])):
-                    raise AssertionError(f"{name}: the kernel wrote outside its window or slot")
-                del a, dx, dw, dseed, rdx, rdw, rds, dx0, dw0
-        a, _ = S.sga_sweep_seeded_kernel(x, w, False, seed, True, direction=2, col0=col0,
-                                         cols=cols, out=torch.zeros_like(x))
+
+        def k5(direction, reverse, valid):
+            return S.sga_sweep_seeded_kernel(x, w, reverse, seed, valid, direction=direction,
+                                             col0=col0, cols=cols, out=torch.zeros_like(x))[0]
+
+        err = hold_k6(torch, S, x, w, seed, gbar, dbound, dx0, dw0, col0, cols, k5, tag)
+        a = k5(2, False, True)
         dx, dw = torch.zeros_like(x), torch.zeros_like(w)
-        ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_seeded_kernel(
-            x, w, a, gbar, False, seed, True, direction=2, col0=col0, cols=cols,
-            dboundary=dbound, dx=dx, dw=dw), reps=20)
+
+        def launch():
+            S.sga_sweep_bwd_seeded_kernel(x, w, a, gbar, False, seed, True, direction=2, col0=col0,
+                                          cols=cols, dboundary=dbound, dx=dx, dw=dw)
+
+        ms = cuda_ms(torch, launch, reps=20)
         plain_ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_plain(
             x[..., win], w[:, 2, :, :, win], a[..., win], gbar[..., win], "h", False, seed, True,
             dbound), reps=1)
-        vol = N * D * H * cols
-        # Reads x, A, gbar, 5 weight planes, the seed and dboundary; writes dx, dw and dseed.
-        bound_ms, by, nbytes = window_bound(4 * vol, 2 * N * D * cols,
-                                            10 * N * H * cols + N * D * cols,
-                                            x.element_size(), 25 * vol)
+        bound_ms, by, nbytes = seeded_bwd_bound(x, cols)
+        info = S.sga_bwd_seeded_describe(x, w, seed, direction=2, col0=col0, cols=cols)
         log(f"  {tag}: kernel {ms:.4f} ms per launch, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {25 * vol / 1e9:.3f} GFLOP)")
+            f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {25 * N * D * H * cols / 1e9:.3f} "
+            f"GFLOP), {bound_ms / ms:.1%} of it; card {smi}")
+        log(f"    {describe_line(info)}, {info['blocks_per_sm']} blocks an SM")
+        if not info["vectorised"] or info["local_bytes"]:
+            raise AssertionError(f"{tag}: K6 staged element-wise or spilled: {info}")
+        path[dtype] = info
         if dtype == torch.bfloat16:
             entry = {
                 "name": "sga_bwd_seeded", "route": "cuda",
@@ -911,8 +968,44 @@ def phase_seeded_bwd(torch, gen):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
             }
-        del x, w, seed, gbar, a, dx, dw
+        del x, w, seed, gbar, a, dx, dw, dx0, dw0
     del x32, w32, s32, b32, dbound, dx0_32, dw0_32
+    # K6's step loop in SASS at the path's layout (every bin in [0, D)).
+    for name, ops in sass_chunk_loops(_build._lib_path("sga_bwd_seeded")).items():
+        for dtype, info in path.items():
+            want = f"{'13__nv_bfloat16' if dtype == torch.bfloat16 else 'f'}Li{info['lanes']}ELi{info['bins']}ELb1E"
+            if want in name:
+                log(f"  sga_bwd_seeded step loop {str(dtype)[6:]} (G={info['lanes']}, B={info['bins']}): "
+                    f"{sass_line(ops)}")
+    # The top rungs of D, on a small window; A from the plain forward (K5
+    # takes D <= 128).
+    Nr, Hr, Wr = SGA_RUNG_SHAPE
+    c0, nc = K6_RUNG_WINDOW
+    rwin = slice(c0, c0 + nc)
+    for Dr in SGA_RUNG_DS:
+        x32 = torch.randn((Nr, Dr, Hr, Wr), device="cuda", generator=gen)
+        w32 = l1_normalize(torch.randn((Nr, 4, 5, Hr, Wr), device="cuda", generator=gen), dim=2)
+        s32 = torch.randn((Nr, Dr, nc), device="cuda", generator=gen)
+        b32 = torch.randn((Nr, Dr, Hr, Wr), device="cuda", generator=gen)
+        dbound = torch.randn((Nr, Dr, nc), device="cuda", generator=gen)
+        dx0_32 = torch.randn((Nr, Dr, Hr, Wr), device="cuda", generator=gen)
+        dw0_32 = torch.randn((Nr, 4, 5, Hr, Wr), device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, seed, gbar = x32.to(dtype), w32.to(dtype), s32.to(dtype), b32.to(dtype)
+            tag = f"sga_bwd_seeded rung D={Dr} {tuple(x.shape)} [{c0}:{c0 + nc}] {str(dtype)[6:]}"
+
+            def plain_a(direction, reverse, valid):
+                a = torch.zeros_like(x)
+                a[..., rwin] = S.sga_sweep_plain(x[..., rwin], w[:, direction, :, :, rwin], "h",
+                                                 reverse, seed, valid).to(dtype)
+                return a
+
+            hold_k6(torch, S, x, w, seed, gbar, dbound, dx0_32.to(dtype), dw0_32.to(dtype), c0, nc,
+                    plain_a, tag)
+            info = S.sga_bwd_seeded_describe(x, w, seed, direction=2, col0=c0, cols=nc)
+            log(f"    K6 {tag}: {describe_line(info)}, {info['blocks_per_sm']} blocks an SM")
+            if not info["vectorised"] or info["local_bytes"]:
+                raise AssertionError(f"{tag}: K6 staged element-wise or spilled: {info}")
     return entry
 
 
@@ -1638,7 +1731,7 @@ def main() -> int:
         entries.append(phase_seeded_fwd(torch, gen))
     if want(11):
         log(f"[11] K6 seeded SGA gradient-sweep kernel vs plain version ({time.perf_counter() - t0:.1f} s)")
-        entries.append(phase_seeded_bwd(torch, gen))
+        entries.append(phase_seeded_bwd(torch, gen, smi))
     if want(12):
         log(f"[12] sharded SGA wavefront and halo LGA on {SHARDS} ranks sharing the card "
             f"({time.perf_counter() - t0:.1f} s)")

@@ -75,7 +75,7 @@ SGA_DS = [1, 2, 16, 33, 64, 65, 128, 129, 192, 256]
 
 
 def _vectorised(axis, D, W, elem):
-    """Whether K1 and K3 stage a sweep by whole copies: 4-byte units along
+    """Whether K1, K3 and K6 stage a sweep by whole copies: 4-byte units along
     W; along H 16-byte copies, or whole 8-byte rows where a warp's 32/G
     columns are 8 bytes (bfloat16 at G = 8 lanes a column, D > 128)."""
     if axis == "w":
@@ -84,10 +84,11 @@ def _vectorised(axis, D, W, elem):
 
 
 def test_sga_max_d_is_the_kernels(cuda):
-    """The Python limit is what the libraries of K1 and K3 report, and the
+    """The Python limit is what the libraries of K1, K3 and K6 report, and the
     wrappers refuse one bin more."""
     assert S._lib().sga_sweep_max_d() == S.SGA_MAX_D
     assert S._bwd_lib().sga_sweep_bwd_max_d() == S.SGA_MAX_D
+    assert S._bwd_seeded_lib().sga_sweep_bwd_seeded_max_d() == S.SGA_MAX_D
     D = S.SGA_MAX_D + 1
     x = torch.zeros((1, D, 2, 8), device="cuda")
     w = torch.zeros((1, 5, 2, 8), device="cuda")
@@ -456,15 +457,24 @@ def test_eval_route_fuses_in_place(cuda):
     assert torch.cuda.max_memory_allocated() - before <= out.numel() * out.element_size() + 4096
 
 
-# (N, D, H, W, col0, cols): ragged windows inside wider rows.
-SEEDED_SHAPES = [(2, 4, 6, 10, 3, 5), (3, 13, 9, 70, 0, 37), (1, 100, 5, 40, 8, 32)]
+# (N, D, H, W, col0, cols): ragged windows inside wider rows; a walk of one
+# step (H = 1); windows of whole copies whose cols is not a multiple of 16,
+# and one of 37 columns at an odd col0 (element-wise staging); K6's top rungs
+# of D (above K5's 128), with whole copies and element-wise (23 columns at an
+# odd col0, a ragged last tile).
+SEEDED_SHAPES = [(2, 4, 6, 10, 3, 5), (3, 13, 9, 70, 0, 37), (1, 100, 5, 40, 8, 32),
+                 (2, 64, 1, 24, 4, 16), (2, 64, 5, 64, 8, 40), (2, 64, 7, 60, 5, 37),
+                 (2, 129, 4, 40, 8, 24), (1, 192, 3, 40, 8, 24), (1, 256, 3, 40, 8, 24),
+                 (1, 129, 3, 40, 5, 23), (1, 256, 3, 40, 5, 23)]
 
 
 @pytest.mark.parametrize("shape", SEEDED_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seeded_sweep_kernels(cuda, shape, dtype):
-    """K5 and K6 against their plain versions on a column window, seeded
-    and not, forward and reverse; dx and dw are added into."""
+    """K5 (up to its D) and K6 against their plain versions on a column
+    window, seeded and not, forward and reverse; dx and dw are added into,
+    dseed is 0 without a seed, and nothing outside the window or the
+    direction's slot is written."""
     N, D, H, W, col0, cols = shape
     win = slice(col0, col0 + cols)
     x = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
@@ -472,25 +482,48 @@ def test_seeded_sweep_kernels(cuda, shape, dtype):
     seed = torch.randn((N, D, cols), device="cuda", generator=cuda).to(dtype)
     gbar = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
     dbound = torch.randn((N, D, cols), device="cuda", generator=cuda)
+    dx0 = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+    dw0 = torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda).to(dtype)
+    outside = torch.ones((N, 1, H, W), dtype=torch.bool, device="cuda")
+    outside[..., win] = False
+    k5 = D <= S._fwd_seeded_lib().sga_sweep_fwd_seeded_max_d()
     for direction, reverse in ((2, False), (3, True)):
         for valid in (True, False):
-            out, bnd = S.sga_sweep_seeded_kernel(
-                x, w, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
-                out=torch.zeros_like(x))
             ref = S.sga_sweep_plain(x[..., win], w[:, direction, ..., win], "h", reverse, seed, valid).to(dtype)
-            _close(out[..., win].contiguous(), ref)
-            _close(bnd, ref[:, :, 0 if reverse else -1].contiguous())
-            assert not out[..., :col0].any() and not out[..., col0 + cols:].any()
+            if k5:
+                out, bnd = S.sga_sweep_seeded_kernel(
+                    x, w, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
+                    out=torch.zeros_like(x))
+                _close(out[..., win].contiguous(), ref)
+                _close(bnd, ref[:, :, 0 if reverse else -1].contiguous())
+                assert not out[..., :col0].any() and not out[..., col0 + cols:].any()
+            else:
+                out = torch.zeros_like(x)
+                out[..., win] = ref
+            info = S.sga_bwd_seeded_describe(x, w, seed if valid else None, direction=direction,
+                                             col0=col0, cols=cols)
+            assert info["local_bytes"] == 0, info
+            # K3's staging rule along H, and col0 and cols whole copies too.
+            vec = all(_vectorised("h", D, n, x.element_size()) for n in (W, col0, cols))
+            assert info["vectorised"] == int(vec), info
             dx, dw, dseed = S.sga_sweep_bwd_seeded_kernel(
                 x, w, out, gbar, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
-                dboundary=dbound)
+                dboundary=dbound, dx=dx0.clone(), dw=dw0.clone())
+            # The plain version in f32: the kernel adds into the old dx and dw
+            # in f32 and rounds once.
             rdx, rdw, rds = S.sga_sweep_bwd_plain(
-                x[..., win], w[:, direction, ..., win], out[..., win], gbar[..., win], "h", reverse,
-                seed, valid, dbound)
-            _close(dx[..., win].contiguous(), rdx, summed=True)
-            _close(dw[:, direction, ..., win].contiguous(), rdw, summed=True)
-            _close(dseed, rds.float(), summed=True)
-            assert not dx[..., :col0].any() and not dw[:, [0, 1, 5 - direction]].any()
+                x[..., win].float(), w[:, direction, ..., win].float(), out[..., win].float(),
+                gbar[..., win].float(), "h", reverse, seed.float(), valid, dbound)
+            _close(dx[..., win].contiguous(), (dx0[..., win].float() + rdx).to(dtype), summed=True)
+            _close(dw[:, direction, ..., win].contiguous(),
+                   (dw0[:, direction, ..., win].float() + rdw).to(dtype), summed=True)
+            _close(dseed, rds, summed=True)
+            if not valid:
+                assert not dseed.any()
+            others = [k for k in range(4) if k != direction]
+            assert torch.equal(dx.masked_select(outside), dx0.masked_select(outside))
+            assert torch.equal(dw[:, direction].masked_select(outside), dw0[:, direction].masked_select(outside))
+            assert torch.equal(dw[:, others], dw0[:, others])
 
 
 def test_seeded_launch_counts(cuda):
