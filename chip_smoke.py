@@ -13,9 +13,10 @@ CUDA toolkit.  Phases, each printing its lines:
      per launch, storing and accumulating, its time beside its own traffic
      floor, the staging path it took (vectorised at every shape of the
      model's paths, the training path's included), its registers, shared
-     memory and local memory (no spills); and at the top rungs of its D
-     (129, 192 and 256 = SGA_MAX_D) on a small volume, per direction,
-     storing and accumulating, with no spills;
+     memory and local memory (no spills), and its H-sweep step loop in
+     SASS; and at the top rungs of its D (129, 192 and 256 = SGA_MAX_D) on
+     a small volume, per direction, storing and accumulating, with no
+     spills;
   3. the LGA kernel (K2) against its plain version at the eval path's head
      (repeats 1 and 2) and at the training path's, float32 and bfloat16:
      two launches bit-identical, its time beside its bound, its
@@ -47,8 +48,13 @@ CUDA toolkit.  Phases, each printing its lines:
      batch, the step time, peak memory and a profile of the forward and the
      backward;
  10. the seeded H-sweep kernel of the sharded wavefront (K5) against its
-     plain version on a 128-column window of the per-shard full-res block,
-     seeded and not, forward and reverse, float32 and bfloat16;
+     plain version on a 128-column window of the per-shard eval and
+     training chunks, seeded and not, forward and reverse, float32 and
+     bfloat16; unseeded over the whole width, bit for bit against K1's H
+     sweep; its time at both chunks beside its bound and its launches, its
+     pace over H, its describe fields (vectorised staging, no local memory)
+     and its step loop in SASS; and at the top rungs of its D (129, 192,
+     256) on small windows, whole copies and element-wise;
  11. its gradient kernel (K6) likewise at the per-shard training block,
      with dx and dw added into and the seed's cotangent (0 without a seed),
      nothing written outside the window or the direction's slot; its time
@@ -278,6 +284,13 @@ def phase_sga(torch, gen):
                     raise AssertionError(f"K1 at {(N, D, H, W)} {dtype}: element-wise or spilled: {info}")
             log(f"  sga training block {(N, D, H, W)} {str(dtype)[6:]}: vectorised staging in all 4 directions")
             del x, w
+    # K1's H-sweep step loop in SASS at the paths' D = 64 (2 lanes x 32 bins).
+    from ganet_tpu_torch.ops import _build
+
+    for name, ops in sass_chunk_loops(_build._lib_path("sga_fwd")).items():
+        for dt, mangled in (("float32", "If"), ("bfloat16", "I13__nv_bfloat16")):
+            if "sga_sweep_h_kernel" in name and f"{mangled}Li2ELi32E" in name:
+                log(f"  sga_fwd H step loop {dt} (G=2, B=32): {sass_line(ops)}")
     return entry
 
 
@@ -795,57 +808,146 @@ def window_bound(n_vol: int, n_row: int, n_planes: int, elem: int, flops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def phase_seeded_fwd(torch, gen):
-    """K5 at the wavefront's per-shard chunk shape (576x960 full-res block
-    over 4 shards: (32, 64, 48, W=320), a 128-column window); returns the
-    JSON entry (bf16, valid, one launch)."""
+# K5's shapes: the wavefront's per-shard chunks, (N, D, H, W, col0, cols)
+# with the launches each gets.  Eval: GANet_deep's full-res block at 576x960
+# over 4 shards, its middle chunk of 3 (24 launches a sharded eval forward:
+# 3 chunks x 2 directions x 4 ranks).  Train: the 240x528 batch-2 crop's
+# block over 4 shards, its tail chunk of 2 (16 launches a sharded training
+# step).  The walk's pace is timed at the eval chunk over K5_SLOPE_HS rows.
+K5_SHAPES = (("eval", (32, 64, 48, 320, 128, 128), 24), ("train", (64, 64, 20, 176, 48, 128), 16))
+K5_SLOPE_HS = (12, 24, 48)
+# K5's rungs on SGA_RUNG_SHAPE's volume: a window of whole copies in both
+# dtypes, and one at an odd col0 with a ragged last tile (element-wise).
+K5_RUNG_WINDOWS = ((8, 24), (5, 23))
+
+
+def seeded_fwd_bound(x, cols: int):
+    """(bound ms, "bytes" or "operations", bytes) of one K5 launch on `cols`
+    columns of x: x in the window, 5 weight planes and the seed read once,
+    A and the boundary row written once."""
+    N, D, H, _ = x.shape
+    vol = N * D * H * cols
+    return window_bound(2 * vol, 0, 5 * N * H * cols + 2 * N * D * cols, x.element_size(), 10 * vol)
+
+
+def hold_k5(torch, S, x, w, seed, col0, cols, tag) -> float:
+    """K5 against its plain version on the window [col0, col0 + cols), both
+    directions, seeded and not: A and the boundary row, and nothing written
+    outside the window.  Returns the max abs error."""
+    win = slice(col0, col0 + cols)
+    err = 0.0
+    for direction, reverse in ((2, False), (3, True)):
+        for valid in (True, False):
+            out, bnd = S.sga_sweep_seeded_kernel(x, w, reverse, seed, valid, direction=direction,
+                                                 col0=col0, cols=cols, out=torch.zeros_like(x))
+            ref = S.sga_sweep_plain(x[..., win], w[:, direction, :, :, win], "h", reverse,
+                                    seed, valid).to(x.dtype)
+            name = f"{tag} {'bt' if reverse else 'tb'} valid={valid}"
+            err = max(err, compare(torch, f"{name} out", out[..., win], ref))
+            compare(torch, f"{name} boundary", bnd, ref[:, :, 0 if reverse else -1])
+            if out[..., :col0].any() or out[..., col0 + cols:].any():
+                raise AssertionError(f"{name}: the kernel wrote outside its column window")
+            del out, bnd, ref
+    return err
+
+
+def phase_seeded_fwd(torch, gen, smi):
+    """K5 at the wavefront's eval and training chunks (K5_SHAPES), f32 and
+    bf16: against its plain version; unseeded over the whole width, bit for
+    bit against K1's H sweep; its time beside its bound and the launches it
+    gets, its pace over H at the eval chunk, its describe fields
+    (vectorised staging, no local memory: checked after every time is
+    printed) and its step loop in SASS; then at D = 129, 192 and 256 on a
+    small volume.  Returns the JSON entry (eval chunk, bf16, valid, one
+    launch)."""
+    from ganet_tpu_torch.ops import _build
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
-    N, D, H, W, col0, cols = 32, 64, 48, 320, 128, 128
-    x32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
-    w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
-    s32 = torch.randn((N, D, cols), device="cuda", generator=gen)
-    win = slice(col0, col0 + cols)
     entry = None
-    for dtype in (torch.float32, torch.bfloat16):
-        x, w, seed = x32.to(dtype), w32.to(dtype), s32.to(dtype)
-        tag = f"sga_fwd_seeded {tuple(x.shape)} [{col0}:{col0 + cols}] {str(dtype)[6:]}"
-        err = 0.0
-        for direction, reverse in ((2, False), (3, True)):
-            for valid in (True, False):
-                out = torch.zeros_like(x)
-                out, bnd = S.sga_sweep_seeded_kernel(
-                    x, w, reverse, seed, valid, direction=direction, col0=col0, cols=cols, out=out)
-                ref = S.sga_sweep_plain(x[..., win], w[:, direction, :, :, win], "h", reverse,
-                                        seed, valid).to(dtype)
-                name = f"{tag} {'bt' if reverse else 'tb'} valid={valid}"
-                err = max(err, compare(torch, f"{name} out", out[..., win], ref))
-                compare(torch, f"{name} boundary", bnd, ref[:, :, 0 if reverse else -1])
-                if out[..., :col0].abs().max().item() or out[..., col0 + cols:].abs().max().item():
-                    raise AssertionError(f"{name}: the kernel wrote outside its column window")
-                del out, bnd, ref
-        out = torch.empty_like(x)
-        ms = cuda_ms(torch, lambda: S.sga_sweep_seeded_kernel(
-            x, w, False, seed, True, direction=2, col0=col0, cols=cols, out=out), reps=20)
-        plain_ms = cuda_ms(torch, lambda: S.sga_sweep_plain(
-            x[..., win], w[:, 2, :, :, win], "h", False, seed, True), reps=1)
-        vol = N * D * H * cols
-        # Reads x in the window, 5 weight planes and the seed; writes A and the boundary row.
-        bound_ms, by, nbytes = window_bound(2 * vol, 0, 5 * N * H * cols + 2 * N * D * cols,
-                                            x.element_size(), 10 * vol)
-        log(f"  {tag}: kernel {ms:.4f} ms per launch, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {10 * vol / 1e9:.3f} GFLOP)")
-        if dtype == torch.bfloat16:
-            entry = {
-                "name": "sga_fwd_seeded", "route": "cuda",
-                "source": "ganet_tpu_torch/csrc/sga_fwd_seeded.cu",
-                "replaces": "ganet_tpu/ops/sga_pallas.py:115",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            }
-        del x, w, seed, out
-    del x32, w32, s32
+    path, faults = {}, []
+    for label, (N, D, H, W, col0, cols), launches in K5_SHAPES:
+        x32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
+        w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
+        s32 = torch.randn((N, D, cols), device="cuda", generator=gen)
+        win = slice(col0, col0 + cols)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, seed = x32.to(dtype), w32.to(dtype), s32.to(dtype)
+            tag = f"sga_fwd_seeded {label} {tuple(x.shape)} [{col0}:{col0 + cols}] {str(dtype)[6:]}"
+            err = hold_k5(torch, S, x, w, seed, col0, cols, tag)
+            if label == "eval":  # K1's arithmetic over the whole width
+                for direction, reverse in ((2, False), (3, True)):
+                    k1 = S.sga_sweep_kernel(x, w, "h", reverse, direction=direction)
+                    k5, bnd = S.sga_sweep_seeded_kernel(x, w, reverse, None, False, direction=direction)
+                    same = torch.equal(k5, k1) and torch.equal(bnd, k1[:, :, 0 if reverse else -1])
+                    log(f"  {tag} {'bt' if reverse else 'tb'}: unseeded over [0:{W}] against K1's H "
+                        f"sweep: {'bit for bit' if same else 'DIFFERENT'}")
+                    if not same:
+                        raise AssertionError(f"{tag}: K5 over the whole width is not K1's H sweep")
+                    del k1, k5, bnd
+            out = torch.empty_like(x)
+            ms = cuda_ms(torch, lambda: S.sga_sweep_seeded_kernel(
+                x, w, False, seed, True, direction=2, col0=col0, cols=cols, out=out), reps=20)
+            plain_ms = cuda_ms(torch, lambda: S.sga_sweep_plain(
+                x[..., win], w[:, 2, :, :, win], "h", False, seed, True), reps=1)
+            bound_ms, by, nbytes = seeded_fwd_bound(x, cols)
+            info = S.sga_fwd_seeded_describe(x, w, seed, direction=2, col0=col0, cols=cols)
+            log(f"  {tag}: kernel {ms:.4f} ms per launch, plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {10 * N * D * H * cols / 1e9:.3f} "
+                f"GFLOP), {bound_ms / ms:.1%} of it; {launches} launches {launches * ms:.3f} ms, gap "
+                f"{launches * (ms - bound_ms):.3f} ms; card {smi}")
+            log(f"    {describe_line(info)}, {info['blocks_per_sm']} blocks an SM")
+            if not info["vectorised"] or info["local_bytes"]:
+                faults.append(f"{tag}: K5 staged element-wise or spilled: {info}")
+            path[(dtype, info["lanes"], info["bins"])] = label
+            if label == "eval":  # the walk's pace: one step's time and the walk's start
+                hs, ts = [], []
+                for h in K5_SLOPE_HS:
+                    xs, ws = x[:, :, :h].contiguous(), w[:, :, :, :h].contiguous()
+                    ts.append(cuda_ms(torch, lambda: S.sga_sweep_seeded_kernel(
+                        xs, ws, False, seed, True, direction=2, col0=col0, cols=cols), reps=20))
+                    hs.append(h)
+                    del xs, ws
+                hm, tm = sum(hs) / len(hs), sum(ts) / len(ts)
+                slope = sum((h - hm) * (t - tm) for h, t in zip(hs, ts)) / sum((h - hm) ** 2 for h in hs)
+                step_bytes = (2 * N * D + 5 * N) * cols * x.element_size()
+                log(f"    {tag} over H: " + ", ".join(f"H={h} {t:.4f}" for h, t in zip(hs, ts))
+                    + f" ms; {slope * 1e3:.3f} us a step, {tm - slope * hm:.4f} ms at H=0; a step's "
+                    f"bytes {step_bytes / 1e6:.3f} MB take {step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us")
+            if label == "eval" and dtype == torch.bfloat16:
+                entry = {
+                    "name": "sga_fwd_seeded", "route": "cuda",
+                    "source": "ganet_tpu_torch/csrc/sga_fwd_seeded.cu",
+                    "replaces": "ganet_tpu/ops/sga_pallas.py:115",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                }
+            del x, w, seed, out
+        del x32, w32, s32
+        torch.cuda.empty_cache()
+    # K5's step loop in SASS at each layout the chunks ran (D = 64 at both).
+    for name, ops in sass_chunk_loops(_build._lib_path("sga_fwd_seeded")).items():
+        for (dtype, lanes, bins), label in path.items():
+            if f"I{'13__nv_bfloat16' if dtype == torch.bfloat16 else 'f'}Li{lanes}ELi{bins}E" in name:
+                log(f"  sga_fwd_seeded step loop {str(dtype)[6:]} (G={lanes}, B={bins}, {label} chunk): "
+                    f"{sass_line(ops)}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    # The top rungs of D, on a small volume.
+    Nr, Hr, Wr = SGA_RUNG_SHAPE
+    for Dr in SGA_RUNG_DS:
+        x32 = torch.randn((Nr, Dr, Hr, Wr), device="cuda", generator=gen)
+        w32 = l1_normalize(torch.randn((Nr, 4, 5, Hr, Wr), device="cuda", generator=gen), dim=2)
+        for c0, nc in K5_RUNG_WINDOWS:
+            s32 = torch.randn((Nr, Dr, nc), device="cuda", generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w, seed = x32.to(dtype), w32.to(dtype), s32.to(dtype)
+                tag = f"sga_fwd_seeded rung D={Dr} {tuple(x.shape)} [{c0}:{c0 + nc}] {str(dtype)[6:]}"
+                hold_k5(torch, S, x, w, seed, c0, nc, tag)
+                info = S.sga_fwd_seeded_describe(x, w, seed, direction=2, col0=c0, cols=nc)
+                log(f"    K5 {tag}: {describe_line(info)}, {info['blocks_per_sm']} blocks an SM")
+                if info["vectorised"] != ((c0, nc) == K5_RUNG_WINDOWS[0]) or info["local_bytes"]:
+                    raise AssertionError(f"{tag}: K5's staging is not the window's, or it spilled: {info}")
     return entry
 
 
@@ -977,8 +1079,7 @@ def phase_seeded_bwd(torch, gen, smi):
             if want in name:
                 log(f"  sga_bwd_seeded step loop {str(dtype)[6:]} (G={info['lanes']}, B={info['bins']}): "
                     f"{sass_line(ops)}")
-    # The top rungs of D, on a small window; A from the plain forward (K5
-    # takes D <= 128).
+    # The top rungs of D, on a small window; A from the plain forward.
     Nr, Hr, Wr = SGA_RUNG_SHAPE
     c0, nc = K6_RUNG_WINDOW
     rwin = slice(c0, c0 + nc)
@@ -1154,10 +1255,11 @@ def phase_sharded(torch, smi, entries):
                 xs, ws = x.detach(), other.detach()
                 ms = cuda_ms(torch, lambda: S.sga_ncdhw(xs, ws), reps=5)
                 log(f"  {tag}: the unsharded K1 sga on the whole volume: {ms:.3f} ms")
-        if name == "sga_grad":
-            for e in entries:
-                if e["name"] in ("sga_fwd_seeded", "sga_bwd_seeded"):
-                    e["launches"] = sum(c[e["name"]] for c in res["launches"])
+        # K5's launches in a sharded eval forward (its entry's time is the
+        # eval chunk's), K6's in a sharded training step.
+        for e in entries:
+            if (e["name"], name) in (("sga_fwd_seeded", "sga_bf16"), ("sga_bwd_seeded", "sga_grad")):
+                e["launches"] = sum(c[e["name"]] for c in res["launches"])
         del inputs, x, other, ref, got, res
         results[name] = None
         torch.cuda.empty_cache()
@@ -1728,7 +1830,7 @@ def main() -> int:
         phase_train_path(torch, smi, entries)
     if want(10):
         log(f"[10] K5 seeded SGA sweep kernel vs plain version ({time.perf_counter() - t0:.1f} s)")
-        entries.append(phase_seeded_fwd(torch, gen))
+        entries.append(phase_seeded_fwd(torch, gen, smi))
     if want(11):
         log(f"[11] K6 seeded SGA gradient-sweep kernel vs plain version ({time.perf_counter() - t0:.1f} s)")
         entries.append(phase_seeded_bwd(torch, gen, smi))

@@ -3,8 +3,9 @@
 Each source `ganet_tpu_torch/csrc/<name>.cu` has a plain C interface and is
 compiled by `nvcc` for `sm_90a` into its own shared library under
 `build/kernels/` at the root of the checkout, then loaded with `ctypes`.
-The library's file name carries a hash of the source, so an edited source
-is rebuilt and an unchanged one is reused.  `build_all` starts one `nvcc`
+The library's file name carries a hash of the source and of the headers of
+`csrc/` it includes, so an edited source or header is rebuilt and an
+unchanged one is reused.  `build_all` starts one `nvcc`
 per source at once; nothing is built at import time.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,9 +48,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """`<name>.cu` and the files of `csrc/` it includes with `#include "..."`,
+    recursively, each once, in the order they are first included."""
+    found: list = []
+
+    def visit(path: Path) -> None:
+        if path in found or not path.is_file():
+            return
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            visit(CSRC / inc.decode())
+
+    visit(CSRC / f"{name}.cu")
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

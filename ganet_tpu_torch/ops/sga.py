@@ -51,12 +51,12 @@ from ganet_tpu_torch.ops.normalize import at_least_f32
 # (axis, reverse) of each direction, in the order above.
 DIRECTIONS = (("w", False), ("w", True), ("h", False), ("h", True))
 
-# The largest D that one launch of K1, K3 or K6 takes: 8 lanes x 32 bins a
-# column along H, 32 x 8 along W.  It equals `sga_sweep_max_d`,
-# `sga_sweep_bwd_max_d` and `sga_sweep_bwd_seeded_max_d` of the kernels'
-# libraries (a `gpu` test holds them to it); K5 takes D <= 128.  The
-# model's SGA volume has D = max_disp / 3, so it caps max_disp at
-# 3 * SGA_MAX_D on the kernels (`entry.build_model` checks).
+# The largest D that one launch of K1, K3, K5 or K6 takes: 8 lanes x 32
+# bins a column along H, 32 x 8 along W.  It equals `sga_sweep_max_d`,
+# `sga_sweep_bwd_max_d`, `sga_sweep_fwd_seeded_max_d` and
+# `sga_sweep_bwd_seeded_max_d` of the kernels' libraries (a `gpu` test holds
+# them to it).  The model's SGA volume has D = max_disp / 3, so it caps
+# max_disp at 3 * SGA_MAX_D on the kernels (`entry.build_model` checks).
 SGA_MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -680,8 +680,51 @@ def sga_sweep_bwd_seeded_kernel(
 
 sga_sweep_bwd_seeded_kernel.launches = 0
 
-# `sga_bwd_seeded_describe`'s fields: DESCRIBE_KEYS and the blocks resident an SM.
+# The fields of `sga_fwd_seeded_describe` and `sga_bwd_seeded_describe`:
+# DESCRIBE_KEYS and the blocks resident an SM.
 SEEDED_DESCRIBE_KEYS = DESCRIBE_KEYS + ("blocks_per_sm",)
+
+
+def _seeded_describe(loader, symbol: str, layout: str, x, w, seed, direction, col0, cols) -> dict:
+    """Call the describe entry `symbol` of a seeded kernel's library: each
+    of its pointer arguments is x's (`layout` letter "x"), w's at
+    `direction`'s weights ("w"), the seed's ("s"; null for None) or null
+    ("0"), then the shape, the window, the weights' stride and the dtype."""
+    if not x.is_cuda:
+        raise ValueError(f"{symbol} describes a CUDA launch, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{symbol}: the kernel takes float32 or bfloat16, got {x.dtype}")
+    cols, w_offset, w_nstride, _ = _window(x, w, direction, col0, cols)
+    _row(seed, x, cols, x.dtype, "seed")
+    N, D, H, W = x.shape
+    fn = getattr(loader(), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(layout) + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    ptr = {"x": x.data_ptr(), "w": w.data_ptr() + w_offset * w.element_size(),
+           "s": None if seed is None else seed.data_ptr(), "0": None}
+    info = (ctypes.c_int * len(SEEDED_DESCRIBE_KEYS))()
+    status = fn(*(ptr[c] for c in layout), N, D, H, W, col0, cols, w_nstride, _DTYPES[x.dtype],
+                ctypes.addressof(info))
+    _build.check(status, symbol)
+    return dict(zip(SEEDED_DESCRIBE_KEYS, info))
+
+
+def sga_fwd_seeded_describe(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    seed: torch.Tensor | None = None,
+    *,
+    direction: int | None = None,
+    col0: int = 0,
+    cols: int | None = None,
+) -> dict:
+    """What one K5 launch (`sga_sweep_seeded_kernel`) on this window runs,
+    without launching, from `sga_sweep_fwd_seeded_describe`: the fields of
+    `sga_describe` and `blocks_per_sm`, for an output laid out and aligned
+    as x, a new boundary row, and the seed given (None: not `valid`).
+    Raises on a CPU tensor."""
+    return _seeded_describe(_fwd_seeded_lib, "sga_sweep_fwd_seeded_describe", "xwsx0", x, w, seed,
+                            direction, col0, cols)
 
 
 def sga_bwd_seeded_describe(
@@ -698,22 +741,8 @@ def sga_bwd_seeded_describe(
     fields of `sga_describe` and `blocks_per_sm`, for volumes (A, gbar, dx)
     laid out and aligned as x, dw as w, and the seed given (None: not
     `valid`).  Raises on a CPU tensor."""
-    if not x.is_cuda:
-        raise ValueError(f"sga_sweep_bwd_seeded_describe describes a CUDA launch, got {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"seeded sga bwd kernel takes float32 or bfloat16, got {x.dtype}")
-    cols, w_offset, w_nstride, _ = _window(x, w, direction, col0, cols)
-    _row(seed, x, cols, x.dtype, "seed")
-    N, D, H, W = x.shape
-    fn = _bwd_seeded_lib().sga_sweep_bwd_seeded_describe
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    xp, wp = x.data_ptr(), w.data_ptr() + w_offset * w.element_size()
-    info = (ctypes.c_int * len(SEEDED_DESCRIBE_KEYS))()
-    status = fn(xp, wp, xp, None if seed is None else seed.data_ptr(), xp, xp, wp,
-                N, D, H, W, col0, cols, w_nstride, _DTYPES[x.dtype], ctypes.addressof(info))
-    _build.check(status, "sga_sweep_bwd_seeded_describe")
-    return dict(zip(SEEDED_DESCRIBE_KEYS, info))
+    return _seeded_describe(_bwd_seeded_lib, "sga_sweep_bwd_seeded_describe", "xwxsxxw", x, w, seed,
+                            direction, col0, cols)
 
 
 class SeededSweep(torch.autograd.Function):

@@ -84,10 +84,11 @@ def _vectorised(axis, D, W, elem):
 
 
 def test_sga_max_d_is_the_kernels(cuda):
-    """The Python limit is what the libraries of K1, K3 and K6 report, and the
-    wrappers refuse one bin more."""
+    """The Python limit is what the libraries of K1, K3, K5 and K6 report, and
+    the wrappers refuse one bin more."""
     assert S._lib().sga_sweep_max_d() == S.SGA_MAX_D
     assert S._bwd_lib().sga_sweep_bwd_max_d() == S.SGA_MAX_D
+    assert S._fwd_seeded_lib().sga_sweep_fwd_seeded_max_d() == S.SGA_MAX_D
     assert S._bwd_seeded_lib().sga_sweep_bwd_seeded_max_d() == S.SGA_MAX_D
     D = S.SGA_MAX_D + 1
     x = torch.zeros((1, D, 2, 8), device="cuda")
@@ -459,22 +460,23 @@ def test_eval_route_fuses_in_place(cuda):
 
 # (N, D, H, W, col0, cols): ragged windows inside wider rows; a walk of one
 # step (H = 1); windows of whole copies whose cols is not a multiple of 16,
-# and one of 37 columns at an odd col0 (element-wise staging); K6's top rungs
-# of D (above K5's 128), with whole copies and element-wise (23 columns at an
-# odd col0, a ragged last tile).
+# and one of 37 columns at an odd col0 (element-wise staging); the top rungs
+# of D (above 128), with whole copies and element-wise (23 columns at an odd
+# col0, a ragged last tile); at D = 64 a grid of 264 warps of 16 columns,
+# where K5 leaves 4 lanes x 16 bins for 2 x 32.
 SEEDED_SHAPES = [(2, 4, 6, 10, 3, 5), (3, 13, 9, 70, 0, 37), (1, 100, 5, 40, 8, 32),
                  (2, 64, 1, 24, 4, 16), (2, 64, 5, 64, 8, 40), (2, 64, 7, 60, 5, 37),
                  (2, 129, 4, 40, 8, 24), (1, 192, 3, 40, 8, 24), (1, 256, 3, 40, 8, 24),
-                 (1, 129, 3, 40, 5, 23), (1, 256, 3, 40, 5, 23)]
+                 (1, 129, 3, 40, 5, 23), (1, 256, 3, 40, 5, 23), (24, 64, 3, 184, 8, 176)]
 
 
 @pytest.mark.parametrize("shape", SEEDED_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seeded_sweep_kernels(cuda, shape, dtype):
-    """K5 (up to its D) and K6 against their plain versions on a column
-    window, seeded and not, forward and reverse; dx and dw are added into,
-    dseed is 0 without a seed, and nothing outside the window or the
-    direction's slot is written."""
+    """K5 and K6 against their plain versions on a column window, seeded and
+    not, forward and reverse; K5's staging path and no local memory; dx and
+    dw are added into, dseed is 0 without a seed, and nothing outside the
+    window or the direction's slot is written."""
     N, D, H, W, col0, cols = shape
     win = slice(col0, col0 + cols)
     x = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
@@ -486,26 +488,21 @@ def test_seeded_sweep_kernels(cuda, shape, dtype):
     dw0 = torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda).to(dtype)
     outside = torch.ones((N, 1, H, W), dtype=torch.bool, device="cuda")
     outside[..., win] = False
-    k5 = D <= S._fwd_seeded_lib().sga_sweep_fwd_seeded_max_d()
+    # K1's and K3's staging rule along H, and col0 and cols whole copies too.
+    vec = all(_vectorised("h", D, n, x.element_size()) for n in (W, col0, cols))
     for direction, reverse in ((2, False), (3, True)):
         for valid in (True, False):
             ref = S.sga_sweep_plain(x[..., win], w[:, direction, ..., win], "h", reverse, seed, valid).to(dtype)
-            if k5:
-                out, bnd = S.sga_sweep_seeded_kernel(
-                    x, w, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
-                    out=torch.zeros_like(x))
-                _close(out[..., win].contiguous(), ref)
-                _close(bnd, ref[:, :, 0 if reverse else -1].contiguous())
-                assert not out[..., :col0].any() and not out[..., col0 + cols:].any()
-            else:
-                out = torch.zeros_like(x)
-                out[..., win] = ref
-            info = S.sga_bwd_seeded_describe(x, w, seed if valid else None, direction=direction,
-                                             col0=col0, cols=cols)
-            assert info["local_bytes"] == 0, info
-            # K3's staging rule along H, and col0 and cols whole copies too.
-            vec = all(_vectorised("h", D, n, x.element_size()) for n in (W, col0, cols))
-            assert info["vectorised"] == int(vec), info
+            out, bnd = S.sga_sweep_seeded_kernel(
+                x, w, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
+                out=torch.zeros_like(x))
+            _close(out[..., win].contiguous(), ref)
+            _close(bnd, ref[:, :, 0 if reverse else -1].contiguous())
+            assert not out[..., :col0].any() and not out[..., col0 + cols:].any()
+            for describe in (S.sga_fwd_seeded_describe, S.sga_bwd_seeded_describe):
+                info = describe(x, w, seed if valid else None, direction=direction, col0=col0, cols=cols)
+                assert info["local_bytes"] == 0, info
+                assert info["vectorised"] == int(vec), info
             dx, dw, dseed = S.sga_sweep_bwd_seeded_kernel(
                 x, w, out, gbar, reverse, seed, valid, direction=direction, col0=col0, cols=cols,
                 dboundary=dbound, dx=dx0.clone(), dw=dw0.clone())
@@ -524,6 +521,23 @@ def test_seeded_sweep_kernels(cuda, shape, dtype):
             assert torch.equal(dx.masked_select(outside), dx0.masked_select(outside))
             assert torch.equal(dw[:, direction].masked_select(outside), dw0[:, direction].masked_select(outside))
             assert torch.equal(dw[:, others], dw0[:, others])
+
+
+@pytest.mark.parametrize("D", [8, 64, 129, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seeded_sweep_equals_k1_over_the_whole_width(cuda, D, dtype):
+    """K5 unseeded over the columns [0, W) runs K1's arithmetic: its output
+    equals K1's H sweep bit for bit, in both directions, with whole copies
+    (W = 40) and element-wise (W = 37)."""
+    for W in (40, 37):
+        N, H = 2, 9
+        x = torch.randn((N, D, H, W), device="cuda", generator=cuda).to(dtype)
+        w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=cuda), dim=2).to(dtype)
+        for direction, reverse in ((2, False), (3, True)):
+            k1 = S.sga_sweep_kernel(x, w, "h", reverse, direction=direction)
+            k5, bnd = S.sga_sweep_seeded_kernel(x, w, reverse, None, False, direction=direction)
+            assert torch.equal(k5, k1)
+            assert torch.equal(bnd, k1[:, :, 0 if reverse else -1])
 
 
 def test_seeded_launch_counts(cuda):

@@ -5,9 +5,10 @@ entries, on the CPU.
 functions the offset and per-n stride, in elements, of one direction's 5
 weight planes: pinned here for an (N, 5, H, W) set and for each direction
 of an (N, 4, 5, H, W) set, and held against the view the plain versions
-read.  `sga_describe`, `sga_bwd_describe` and `sga_bwd_seeded_describe`
-describe a CUDA launch and raise on a CPU tensor.  The redesigned sweep
-kernels (K1, K3, K6) have no block barrier.
+read.  `sga_describe`, `sga_bwd_describe`, `sga_fwd_seeded_describe` and
+`sga_bwd_seeded_describe` describe a CUDA launch and raise on a CPU
+tensor.  The redesigned sweep kernels (K1, K3, K5, K6) have no block
+barrier.
 """
 
 from pathlib import Path
@@ -47,14 +48,14 @@ def test_describe_raises_on_a_cpu_tensor(describe):
         describe(torch.zeros((N, D, H, W)), torch.zeros((N, 4, 5, H, W)), "w", 0)
 
 
-def test_seeded_describe_raises_on_a_cpu_tensor():
+@pytest.mark.parametrize("describe", [S.sga_fwd_seeded_describe, S.sga_bwd_seeded_describe])
+def test_seeded_describe_raises_on_a_cpu_tensor(describe):
     x = torch.zeros((N, D, H, W))
     with pytest.raises(ValueError, match="CUDA"):
-        S.sga_bwd_seeded_describe(x, torch.zeros((N, 4, 5, H, W)), torch.zeros((N, D, 3)),
-                                  direction=2, col0=1, cols=3)
+        describe(x, torch.zeros((N, 4, 5, H, W)), torch.zeros((N, D, 3)), direction=2, col0=1, cols=3)
 
 
-@pytest.mark.parametrize("source", ["sga_fwd", "sga_bwd", "sga_bwd_seeded"])
+@pytest.mark.parametrize("source", ["sga_fwd", "sga_bwd", "sga_fwd_seeded", "sga_bwd_seeded"])
 def test_sweep_kernels_have_no_block_barrier(source):
     text = (Path(S.__file__).resolve().parent.parent / "csrc" / f"{source}.cu").read_text()
     assert "__syncthreads(" not in text and "__syncwarp(" in text
