@@ -90,7 +90,21 @@ CUDA toolkit.  Phases, each printing its lines:
      batch 1, its JSON line and peak memory; every K1 and K2 launch of
      these runs recorded by volume shape, and K1 (each direction, storing
      and accumulating) and K2 held against their plain versions at each
-     such shape, float32 and bfloat16.
+     such shape, float32 and bfloat16;
+ 15. training from files: a seeded SceneFlow-shaped tree (8 training
+     frames of 540x960, 2 validation frames of 240x528; PNG views, PFM
+     disparity of both views); `python -m ganet_tpu_torch.train` in process
+     (GANet_deep, crop 240x528, max_disp 192, batch 2, --bf16 1, the
+     default --remat sga): 1 epoch of 4 steps with evaluation (finite losses
+     a row a step, checkpoint 0/ with the optimizer and schedule, best/ and
+     best_epe.json), its --resume for epoch 1 (start_epoch 1, steps 5-8, the
+     restored schedule's decayed lr) and a --left_right 1 run; the predict
+     CLI from the trained checkpoint within 1/256 px of `entry.predict`; the
+     step time and peak memory under remat none, sga and full at batch 2
+     and 4; the launches of every run and step against their expected
+     counts (K1 and K2 twice a step under remat); and K1-K4 held against
+     their plain versions at every volume shape those runs launched them
+     at, float32 and bfloat16.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -343,6 +357,26 @@ def hold_k1(torch, S, x, w, prev, tag) -> None:
         got = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction, out=prev.clone())
         compare(torch, f"{name} accumulating", got, torch.maximum(prev, ref))
         del ref, got
+
+
+def hold_k3(torch, S, x, w, gbar, prev, tag) -> None:
+    """K3 against its plain version in each direction (dx and dw, storing,
+    and dx accumulating into a copy of `prev`), on the forward sweeps of
+    K1."""
+    dw = torch.zeros_like(w)
+    for direction, (axis, reverse) in enumerate(S.DIRECTIONS):
+        name = f"{tag} sweep {axis}{'-rev' if reverse else ''}"
+        a = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction)
+        ref_dx, ref_dw = S.sga_sweep_bwd_plain(
+            x.float(), w[:, direction].float(), a.float(), gbar.float(), axis, reverse)
+        got_dx, _ = S.sga_sweep_bwd_kernel(x, w, a, gbar, axis, reverse, direction=direction, dw=dw)
+        compare(torch, f"{name} dx", got_dx, ref_dx.to(x.dtype), summed=True)
+        compare(torch, f"{name} dw", dw[:, direction], ref_dw.to(x.dtype), summed=True)
+        got_dx, _ = S.sga_sweep_bwd_kernel(x, w, a, gbar, axis, reverse, direction=direction,
+                                           dx=prev.clone(), dw=dw)
+        compare(torch, f"{name} dx accumulating", got_dx, (prev.float() + ref_dx).to(x.dtype),
+                summed=True)
+        del a, ref_dx, ref_dw, got_dx
 
 
 def lga_bound(numel: int, n_guidance: int, elem: int):
@@ -729,19 +763,7 @@ def phase_sga_bwd_rungs(torch, gen) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             x, w, gbar, prev = x32.to(dtype), w32.to(dtype), g32.to(dtype), p32.to(dtype)
             tag = f"sga_bwd rung D={D} {tuple(x.shape)} {str(dtype)[6:]}"
-            dw = torch.zeros_like(w)
-            for direction, (axis, reverse) in enumerate(S.DIRECTIONS):
-                name = f"{tag} sweep {axis}{'-rev' if reverse else ''}"
-                a = S.sga_sweep_kernel(x, w, axis, reverse, direction=direction)
-                ref_dx, ref_dw = S.sga_sweep_bwd_plain(
-                    x.float(), w[:, direction].float(), a.float(), gbar.float(), axis, reverse)
-                got_dx, _ = S.sga_sweep_bwd_kernel(x, w, a, gbar, axis, reverse, direction=direction, dw=dw)
-                compare(torch, f"{name} dx", got_dx, ref_dx.to(dtype), summed=True)
-                compare(torch, f"{name} dw", dw[:, direction], ref_dw.to(dtype), summed=True)
-                got_dx, _ = S.sga_sweep_bwd_kernel(x, w, a, gbar, axis, reverse, direction=direction,
-                                                   dx=prev.clone(), dw=dw)
-                compare(torch, f"{name} dx accumulating", got_dx, (prev.float() + ref_dx).to(dtype),
-                        summed=True)
+            hold_k3(torch, S, x, w, gbar, prev, tag)
             rung_describe(S, S.sga_bwd_describe, "K3 " + tag, x, w)
 
 
@@ -1554,71 +1576,126 @@ FROM_FILES_FRAMES = 1
 BENCH_ITERS = 5
 
 
+# The wrappers whose launches `recording_shapes` records: (count name, the
+# wrapper's name in ops/sga.py or ops/lga.py, and the index of its radius
+# argument, for the LGA kernels).
+RECORDED = (("sga_fwd", "sga_sweep_kernel", None), ("lga_fwd", "lga_kernel", 2),
+            ("sga_bwd", "sga_sweep_bwd_kernel", None), ("lga_bwd", "lga_bwd_kernel", 3))
+
+
 @contextlib.contextmanager
 def recording_shapes(S, G, seen):
-    """Count in `seen` (a Counter) every K1 and K2 launch in the body by
-    kernel, volume shape, dtype (and K2's radius).  Each wrapper counts its
-    launches on its module's name, which the recorders hold meanwhile; the
-    counts go back to the wrappers after."""
-    k1, k2 = S.sga_sweep_kernel, G.lga_kernel
+    """Count in `seen` (a Counter) every K1, K2, K3 and K4 launch in the
+    body by kernel, volume shape, dtype (and the LGA kernels' radius).  Each
+    wrapper counts its launches on its module's name, which the recorders
+    hold meanwhile; the counts go back to the wrappers after."""
+    swapped = []
+    for name, attr, radius_at in RECORDED:
+        module = G if attr.startswith("lga") else S
+        fn = getattr(module, attr)
 
-    def k1_rec(x, w, axis, reverse, **kw):
-        seen[("sga_fwd", tuple(x.shape), x.dtype)] += 1
-        return k1(x, w, axis, reverse, **kw)
+        def rec(x, *args, fn=fn, name=name, radius_at=radius_at, **kw):
+            radius = () if radius_at is None else (args[radius_at - 1],)
+            seen[(name, tuple(x.shape), x.dtype) + radius] += 1
+            return fn(x, *args, **kw)
 
-    def k2_rec(x, g75, radius):
-        seen[("lga_fwd", tuple(x.shape), x.dtype, radius)] += 1
-        return k2(x, g75, radius)
-
-    k1_rec.launches, k2_rec.launches = k1.launches, k2.launches
-    S.sga_sweep_kernel, G.lga_kernel = k1_rec, k2_rec
+        rec.launches = fn.launches
+        setattr(module, attr, rec)
+        swapped.append((module, attr, fn, rec))
     try:
         yield
     finally:
-        k1.launches, k2.launches = k1_rec.launches, k2_rec.launches
-        S.sga_sweep_kernel, G.lga_kernel = k1, k2
+        for module, attr, fn, rec in swapped:
+            fn.launches = rec.launches
+            setattr(module, attr, fn)
 
 
 def recorded_line(seen, launches) -> str:
     """The recorded shapes of a counted run; raises unless the recorders saw
     every launch that the wrappers counted."""
-    for name in ("sga_fwd", "lga_fwd"):
+    for name, _, _ in RECORDED:
         if sum(n for k, n in seen.items() if k[0] == name) != launches[name]:
             raise AssertionError(f"{name}: recorded {dict(seen)}, counted {launches[name]}")
     return "; ".join(f"{k[0]} {k[1]} {str(k[2])[6:]}{f' r{k[3]}' if len(k) > 3 else ''} x{n}"
                      for k, n in seen.items())
 
 
-def hold_at_path_shapes(torch, gen, shapes) -> None:
-    """K1 (each direction, storing and accumulating) and K2 against their
-    plain versions, float32 and bfloat16, at each volume shape that phase
-    14's counted runs launched them at."""
+def hold_at_path_shapes(torch, gen, shapes, tag) -> None:
+    """K1 and K3 (each direction, storing and accumulating), K2 and K4
+    against their plain versions, float32 and bfloat16, at each volume
+    shape in `shapes` (from `recording_shapes`)."""
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
     for key in sorted({k[:2] + k[3:] for k in shapes}, key=str):  # dtype aside: both are held
-        shape = key[1]
+        kind, shape = key[:2]
         x32 = torch.randn(shape, device="cuda", generator=gen)
+        p32 = torch.randn(shape, device="cuda", generator=gen)  # prev for K1/K3, gbar for K4
         for dtype in (torch.float32, torch.bfloat16):
-            tag = f"[14] {key[0]} {shape} {str(dtype)[6:]}"
-            if key[0] == "sga_fwd":
+            name = f"{tag} {kind} {shape} {str(dtype)[6:]}"
+            x, p = x32.to(dtype), p32.to(dtype)
+            if kind in ("sga_fwd", "sga_bwd"):
                 N, _, H, W = shape
-                w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
-                p32 = torch.randn(shape, device="cuda", generator=gen)
-                hold_k1(torch, S, x32.to(dtype), w32.to(dtype), p32.to(dtype), tag)
-                del w32, p32
+                w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen),
+                                 dim=2).to(dtype)
+                if kind == "sga_fwd":
+                    hold_k1(torch, S, x, w, p, name)
+                else:
+                    gbar = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                    hold_k3(torch, S, x, w, gbar, p, name)
+                    del gbar
+                del w
             else:
                 r = key[2]
                 B, _, H, W = shape
-                g32 = l1_normalize(torch.randn((B, 3 * (2 * r + 1) ** 2, H, W), device="cuda",
-                                               generator=gen), dim=1)
-                x, g = x32.to(dtype), g32.to(dtype)
-                compare(torch, f"{tag} r{r}", G.lga_kernel(x, g, r), G.lga_reference_nchw(x, g, r, 1))
-                del g32, x, g
+                g = l1_normalize(torch.randn((B, 3 * (2 * r + 1) ** 2, H, W), device="cuda",
+                                             generator=gen), dim=1).to(dtype)
+                if kind == "lga_fwd":
+                    compare(torch, f"{name} r{r}", G.lga_kernel(x, g, r), G.lga_reference_nchw(x, g, r, 1))
+                else:
+                    got_dx, got_dg = G.lga_bwd_kernel(x, g, p, r)
+                    ref_dx, ref_dg = G.lga_bwd_plain(x, g, p, r)
+                    compare(torch, f"{name} r{r} dx", got_dx, ref_dx, summed=True)
+                    compare(torch, f"{name} r{r} dg", got_dg, ref_dg, summed=True)
+                    del got_dx, got_dg, ref_dx, ref_dg
+                del g
+            del x, p
             torch.cuda.empty_cache()
-        del x32
+        del x32, p32
         torch.cuda.empty_cache()
+
+
+def hold_pngs(written, ds, model, frame) -> None:
+    """Each PNG that the predict CLI wrote against `entry.predict` on the
+    same padded input (sample i of `ds`), unpadded to the (H, W) frame."""
+    import os
+
+    import numpy as np
+
+    from ganet_tpu_torch.data import png
+    from ganet_tpu_torch.entry import predict
+
+    H0, W0 = frame
+    CH = ds.crop_height
+    # The forward repeats itself bit for bit (the kernels sum in a fixed
+    # order, cuDNN picks by shape and layout), which the check needs: with
+    # random weights the bf16 disparity is chaotic, the head's renormalised
+    # expectation dividing by sums near zero, so a change in the last bit of
+    # a convolution moves pixels by whole px.
+    for i, path in enumerate(written):
+        got = png.read_disparity_png(path)
+        s = ds[i]
+        ref = predict(model, s["left"][None], s["right"][None])[0].float().cpu().numpy()
+        ref = np.floor(np.clip(ref[CH - H0 :, :W0] * 256.0, 0, 65535)) / 256.0
+        diff = np.abs(got - ref) if got.shape == ref.shape else np.array([np.inf])
+        err = float(diff.max())
+        ok = err <= 1.0 / 256
+        log(f"  {os.path.basename(path)}: {got.shape[0]}x{got.shape[1]}, max |png - "
+            f"entry.predict| {err:.5f} px (tol 1/256; {int((diff > 1.0 / 256).sum())} pixels "
+            f"past it), range [{got.min():.2f}, {got.max():.2f}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{path} is not entry.predict's disparity")
 
 
 def phase_from_files(torch, gen, smi) -> None:
@@ -1703,29 +1780,11 @@ def phase_from_files(torch, gen, smi) -> None:
             f"writes and the first call's warm-up; launches {launches}; at "
             f"{recorded_line(shapes, launches)}")
 
-        # Each PNG against entry.predict on the same padded input, unpadded.
-        # The forward repeats itself bit for bit (the kernels sum in a fixed
-        # order, cuDNN picks by shape and layout), which the check needs:
-        # with random weights the bf16 disparity is chaotic, the head's
-        # renormalised expectation dividing by sums near zero, so a change
-        # in the last bit of a convolution moves pixels by whole px.
         model = build_model(ganet_deep(max_disp=D, compute_dtype="bfloat16"), device="cuda",
                             state_dict=load_inference_state(ckpt))
         ds = StereoDataset(data_path=root, list_path=lst, crop_height=CH, crop_width=CW,
                            kind="kitti2015", training=False, max_disp=D)
-        for i, path in enumerate(written):
-            got = png.read_disparity_png(path)
-            s = ds[i]
-            ref = predict(model, s["left"][None], s["right"][None])[0].float().cpu().numpy()
-            ref = np.floor(np.clip(ref[CH - H0 :, :W0] * 256.0, 0, 65535)) / 256.0
-            diff = np.abs(got - ref) if got.shape == ref.shape else np.array([np.inf])
-            err = float(diff.max())
-            ok = err <= 1.0 / 256
-            log(f"  {os.path.basename(path)}: {got.shape[0]}x{got.shape[1]}, max |png - "
-                f"entry.predict| {err:.5f} px (tol 1/256; {int((diff > 1.0 / 256).sum())} pixels "
-                f"past it), range [{got.min():.2f}, {got.max():.2f}] {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"[14] {path} is not entry.predict's disparity")
+        hold_pngs(written, ds, model, (H0, W0))
         left = torch.as_tensor(ds[0]["left"][None], device="cuda")
         right = torch.as_tensor(ds[0]["right"][None], device="cuda")
         times = []
@@ -1774,7 +1833,239 @@ def phase_from_files(torch, gen, smi) -> None:
             f"{recorded_line(seen, launches)}; card {smi}")
 
     log(f"[14] K1 and K2 against their plain versions at the {len(shapes)} volume shapes above")
-    hold_at_path_shapes(torch, gen, shapes)
+    hold_at_path_shapes(torch, gen, shapes, "[14]")
+
+
+# Phase 15: SceneFlow's frame (the training frames), the training crop, and
+# the frames of each part of the written tree.
+SCENEFLOW_FRAME = (540, 960)
+TRAIN_CROP = (240, 528)
+TRAIN_FRAMES, VAL_FRAMES = 8, 2
+# Steps a training run takes an epoch, and steps a timing takes after its
+# counted step (the time is the min of the last 3).
+FILE_STEPS, TIMED_STEPS = 4, 4
+# Launches of one GANet_deep training step by remat policy (7 SGA blocks of
+# 4 sweeps, 2 LGA calls of 2 passes): the recompute of "sga" and "full"
+# runs the SGA blocks and the final head's forward again in backward.
+STEP_LAUNCHES = {
+    "none": {"sga_fwd": 28, "lga_fwd": 4, "sga_bwd": 28, "lga_bwd": 4},
+    "sga": {"sga_fwd": 56, "lga_fwd": 8, "sga_bwd": 28, "lga_bwd": 4},
+    "full": {"sga_fwd": 56, "lga_fwd": 8, "sga_bwd": 28, "lga_bwd": 4},
+}
+FORWARD_LAUNCHES = {"sga_fwd": 28, "lga_fwd": 4}
+
+
+def write_sceneflow(root: str, split: str, n: int, frame, rng) -> tuple:
+    """A SceneFlow-shaped tree of `n` frames under `root` (textured left and
+    right PNGs, the right view shifted, PFM disparity of both views signed
+    by view); returns (list file, its lines)."""
+    import os
+
+    import numpy as np
+
+    from ganet_tpu_torch.data import png
+    from ganet_tpu_torch.data.pfm import write_pfm
+
+    H, W = frame
+    lines = [f"frames_finalpass/{split}/A/{i:04d}/left/0006.png" for i in range(n)]
+    for i, line in enumerate(lines):
+        d = 6 + 4 * i
+        base = rng.integers(0, 256, (H // 8 + 2, W // 8 + 2, 3)).astype(np.float32)
+        left = np.kron(base, np.ones((8, 8, 1)))[:H, :W] + rng.normal(0, 6, (H, W, 3))
+        left = np.clip(left, 0, 255).astype(np.uint8)
+        for view, img, sign in (("left", left, 1.0), ("right", np.roll(left, -d, axis=1), -1.0)):
+            path = os.path.join(root, line.replace("/left/", f"/{view}/"))
+            disp = os.path.splitext(path.replace("frames_finalpass", "disparity"))[0] + ".pfm"
+            for p in (path, disp):
+                os.makedirs(os.path.dirname(p), exist_ok=True)
+            png.write_png(path, img)
+            write_pfm(disp, np.full((H, W), sign * d, np.float32))
+    lst = os.path.join(root, f"{split.lower()}.list")
+    with open(lst, "w") as f:
+        f.write("\n".join(lines))
+    return lst, lines
+
+
+def train_rows(save_path: str, prefix: str) -> list:
+    import os
+
+    with open(os.path.join(save_path, "train.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["prefix"] == prefix]
+
+
+def phase_train_from_files(torch, gen, smi) -> None:
+    """The port trains from files on the card: a SceneFlow-shaped tree
+    written here from a seed, then `python -m ganet_tpu_torch.train` in this
+    process (a run with evaluation, its resume, a left_right run), predict
+    from the trained checkpoint, the step time and peak memory under each
+    remat policy at batch 2 and 4, and K1-K4 against their plain versions at
+    the shapes these runs launched them at."""
+    import math
+    import os
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from ganet_tpu_torch import ganet_deep
+    from ganet_tpu_torch import predict as predict_cli
+    from ganet_tpu_torch import train as train_cli
+    from ganet_tpu_torch.data.dataset import StereoDataset
+    from ganet_tpu_torch.entry import build_model
+    from ganet_tpu_torch.ops import lga as G
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.train import Trainer
+    from ganet_tpu_torch.train.checkpoint import load_inference_state
+
+    (H0, W0), (CH, CW), D = SCENEFLOW_FRAME, TRAIN_CROP, 192
+    rng = np.random.default_rng(15)
+    shapes = Counter()
+
+    def counted(tag, fn, want):
+        """Run `fn` with every launch recorded; the counts must be `want`."""
+        seen = Counter()
+        torch.cuda.synchronize()
+        with recording_shapes(S, G, seen):
+            reset_counts(S, G)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_counts(S, G)
+        full = {k: want.get(k, 0) for k in launches}
+        if launches != full:
+            raise AssertionError(f"{tag}: launched {launches}, expected {full}")
+        shapes.update(seen)
+        log(f"{tag}: {secs:.2f} s; launches {launches} at {recorded_line(seen, launches)}")
+        return out
+
+    def total(steps, remat, forwards=0):
+        return {k: steps * STEP_LAUNCHES[remat][k] + forwards * FORWARD_LAUNCHES.get(k, 0)
+                for k in STEP_LAUNCHES[remat]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "sceneflow")
+        t0 = time.perf_counter()
+        train_list, _ = write_sceneflow(root, "TRAIN", TRAIN_FRAMES, (H0, W0), rng)
+        val_list, val_lines = write_sceneflow(root, "TEST", VAL_FRAMES, (CH, CW), rng)
+        log(f"[15] wrote {TRAIN_FRAMES} training frames {H0}x{W0} and {VAL_FRAMES} validation "
+            f"frames {CH}x{CW} (PNG views, PFM disparity of both) in {time.perf_counter() - t0:.1f} s")
+        save = os.path.join(tmp, "ckpt")
+        common = ["--model", "GANet_deep", "--max_disp", str(D), "--bf16", "1", "--batchSize", "2",
+                  "--crop_height", str(CH), "--crop_width", str(CW), "--data_path", root,
+                  "--training_list", train_list, "--val_list", val_list, "--log_every", "1"]
+        run = common + ["--steps", str(FILE_STEPS), "--lr_decay_epoch", "1", "--save_path", save]
+
+        # Run 1: one epoch, evaluated; the default remat is "sga".
+        trainer = counted("[15] run 1 (1 epoch of 4 steps, remat sga, then evaluate)",
+                          lambda: train_cli.main(run + ["--nEpochs", "1", "--eval", "1"]),
+                          total(FILE_STEPS, "sga", forwards=VAL_FRAMES))
+        rows = train_rows(save, "epoch0")
+        val = train_rows(save, "val")
+        files = sorted(os.listdir(os.path.join(save, "0")))
+        ok = (trainer.cfg.model.remat == "sga" and [r["step"] for r in rows] == [1, 2, 3, 4]
+              and all(math.isfinite(r["loss"]) for r in rows) and len(val) == 1
+              and files == ["meta.json", "model.pt", "optimizer.pt", "scheduler.pt"]
+              and os.path.exists(os.path.join(save, "best_epe.json"))
+              and os.listdir(os.path.join(save, "best")) == [str(FILE_STEPS)])
+        log(f"[15] run 1 rows: " + "; ".join(
+            f"step {r['step']} loss {r['loss']:.4f} epe {r['epe']:.3f} lr {r['lr']:g}" for r in rows)
+            + f"; val epe {val[-1]['epe']:.3f} over {val[-1]['valid_px']:.0f} px; checkpoint 0/ {files},"
+            f" best/ {os.listdir(os.path.join(save, 'best'))} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[15] run 1 did not train, save and evaluate")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # Run 2: resumed from epoch 0's checkpoint for a second epoch; the
+        # decay at epoch 1 shows the restored schedule.
+        trainer = counted("[15] run 2 (--resume, epoch 1)",
+                          lambda: train_cli.main(run + ["--nEpochs", "2", "--resume", save]),
+                          total(FILE_STEPS, "sga"))
+        rows2 = train_rows(save, "epoch1")
+        ok = (trainer.start_epoch == 1 and [r["step"] for r in rows2] == [5, 6, 7, 8]
+              and all(math.isfinite(r["loss"]) for r in rows2)
+              and all(math.isclose(r["lr"], 1e-3) for r in rows)
+              and all(math.isclose(r["lr"], 1e-4) for r in rows2)
+              and os.path.exists(os.path.join(save, "1", "scheduler.pt")))
+        log(f"[15] run 2: start_epoch {trainer.start_epoch}; rows " + "; ".join(
+            f"step {r['step']} loss {r['loss']:.4f} lr {r['lr']:g}" for r in rows2)
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[15] the resumed run did not go on from the checkpoint")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # Run 3: left_right, on the right view's PFM disparity.
+        save_lr = os.path.join(tmp, "ckpt_left_right")
+        trainer = counted("[15] run 3 (--left_right 1, 2 steps)",
+                          lambda: train_cli.main(common + ["--left_right", "1", "--nEpochs", "1",
+                                                           "--steps", "2", "--save_path", save_lr]),
+                          total(2, "sga"))
+        rows3 = train_rows(save_lr, "epoch0")
+        ok = [r["step"] for r in rows3] == [1, 2] and all(math.isfinite(r["loss"]) for r in rows3)
+        log(f"[15] run 3 left_right rows: " + "; ".join(
+            f"step {r['step']} loss {r['loss']:.4f} epe {r['epe']:.3f}" for r in rows3)
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[15] the left_right run gave no finite loss")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # Predict from the trained checkpoint (epoch 1's), one validation frame.
+        one = os.path.join(root, "one.list")
+        with open(one, "w") as f:
+            f.write(val_lines[0])
+        written = counted(
+            "[15] predict CLI from the trained checkpoint, 1 frame",
+            lambda: predict_cli.main(["--resume", save, "--data_path", root, "--test_list", one,
+                                      "--crop_height", str(CH), "--crop_width", str(CW),
+                                      "--max_disp", str(D), "--model", "GANet_deep", "--bf16", "1",
+                                      "--save_path", os.path.join(tmp, "result")]),
+            FORWARD_LAUNCHES)
+        model = build_model(ganet_deep(max_disp=D, compute_dtype="bfloat16"), device="cuda",
+                            state_dict=load_inference_state(save))
+        ds = StereoDataset(data_path=root, list_path=one, crop_height=CH, crop_width=CW,
+                           kind="sceneflow", training=False, max_disp=D)
+        hold_pngs(written, ds, model, (CH, CW))
+        del model
+
+        # Step time and peak memory under each remat policy at batch 2 and 4,
+        # on batches read from the files; the first step is counted.
+        for batch in (2, 4):
+            for remat in ("none", "sga", "full"):
+                torch.cuda.empty_cache()
+                args = train_cli.parse_args(common + ["--remat", remat, "--batchSize", str(batch),
+                                                      "--save_path", os.path.join(tmp, f"t_{remat}_{batch}")])
+                trainer = Trainer(train_cli.build_config(args))
+                it = iter(trainer.train_iter)
+                batches = [next(it) for _ in range(2)]
+                it.close()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                step = lambda i: trainer.train_step(trainer.state, batches[i % 2])  # noqa: E731
+                counted(f"[15] one step, remat {remat}, batch {batch}", lambda: step(0),
+                        STEP_LAUNCHES[remat])
+                times, losses = [], []
+                for i in range(1, TIMED_STEPS + 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = step(i)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(m["loss"].item())
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                if not all(map(math.isfinite, losses)):
+                    raise AssertionError(f"[15] remat {remat} batch {batch}: losses {losses}")
+                log(f"[15] GANet_deep {CH}x{CW} D={D} bf16 from files, remat {remat}, batch {batch}: "
+                    f"step time {min(times[-3:]):.1f} ms (min of the last 3; all "
+                    f"{', '.join(f'{t:.1f}' for t in times)}), peak memory {peak:.2f} GiB; card {smi}")
+                trainer.close()
+                del trainer, batches, step
+    torch.cuda.empty_cache()
+
+    log(f"[15] K1-K4 against their plain versions at the {len(shapes)} volume shapes above")
+    hold_at_path_shapes(torch, gen, shapes, "[15]")
 
 
 def main() -> int:
@@ -1844,6 +2135,10 @@ def main() -> int:
     if want(14):
         log(f"[14] the from-files path: predict, evaluate and bench ({time.perf_counter() - t0:.1f} s)")
         phase_from_files(torch, gen, smi)
+    if want(15):
+        log(f"[15] training from files: train, resume, left_right, predict, remat "
+            f"({time.perf_counter() - t0:.1f} s)")
+        phase_train_from_files(torch, gen, smi)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

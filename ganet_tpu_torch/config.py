@@ -11,9 +11,10 @@ model's `sga_impl` becomes `impl`:
   * "kernel": the CUDA kernels (on a CPU tensor a kernel wrapper runs its
               plain version, since a CUDA kernel cannot run there).
 
-`ModelConfig.remat` (rematerialisation) and `channel_tp` (channel tensor
-parallelism) are not ported yet.  `TrainConfig.mesh` is kept; the port's
-trainer runs on one device and refuses a larger mesh.
+`ModelConfig.remat` (rematerialisation) is ported, with
+`torch.utils.checkpoint`; `channel_tp` (channel tensor parallelism) is
+not.  `TrainConfig.mesh` is kept; the port's trainer runs on one device
+and refuses a larger mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 IMPLS = ("auto", "torch", "kernel")
+REMATS = ("none", "sga", "full")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +50,17 @@ class ModelConfig:
     impl: str = "auto"
     sga_norm: str = "l1"
     lga_repeats: int = 2
+    # Rematerialisation in the train-mode forward with gradients:
+    #   "none"  keep every activation autograd saves;
+    #   "sga"   recompute the SGA blocks and the disparity heads in backward;
+    #   "full"  also recompute the hourglass's 3D-conv stages.
+    remat: str = "none"
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
+        if self.remat not in REMATS:
+            raise ValueError(f"unknown remat policy {self.remat!r}; choose from {REMATS}")
 
     @property
     def resolved_head_dtype(self) -> str:

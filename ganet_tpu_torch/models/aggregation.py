@@ -9,14 +9,27 @@ gradients the hand-written backward kernels.
 
 In train mode the intermediate heads `disp0`.. run too, and
 `CostAggregation` returns every head's map for deep supervision; in eval
-mode only the final map.  Rematerialisation is not ported yet.
+mode only the final map.
+
+Rematerialisation (`cfg.remat`, the JAX package's `nn.remat` policy) runs
+in train mode with gradients enabled: under "sga" each SGA block, each
+intermediate head and the final head is a `torch.utils.checkpoint`
+(non-reentrant) whose activations are recomputed in backward, which on a
+CUDA device launches the SGA and LGA forward kernels a second time; under
+"full" so is each 3D-conv stage of the hourglass.  Parameter names do not
+change, so checkpoints of every policy are interchangeable.  The recompute
+runs inside `layers.recomputing()`, so train-mode BatchNorm updates its
+running statistics once a step.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ganet_tpu_torch.config import ModelConfig
 from ganet_tpu_torch.models.layers import (
@@ -24,6 +37,7 @@ from ganet_tpu_torch.models.layers import (
     Conv2x,
     batch_norm,
     channel_schedule,
+    recomputing,
     torch_dtype,
 )
 from ganet_tpu_torch.ops import dispatch
@@ -190,20 +204,32 @@ class CostAggregation(nn.Module):
         self.levels = levels
 
     def forward(self, cv: torch.Tensor, guidance: dict):
+        remat = self.cfg.remat if self.training and torch.is_grad_enabled() else "none"
+        blocks, convs = remat in ("sga", "full"), remat == "full"
         rem = [None] * (self.levels + 1)
         outputs = []
         x = cv
         for step in self.plan:
             kind = step[0]
             if kind == "conv":
-                x = getattr(self, step[1])(x)
+                x = _run(convs, getattr(self, step[1]), x)
             elif kind == "c2":
-                x = getattr(self, step[1])(x, rem[step[2]])
+                x = _run(convs, getattr(self, step[1]), x, rem[step[2]])
             elif kind == "sga":
-                x = getattr(self, step[1])(x, guidance[step[2]][step[3]])
+                x = _run(blocks, getattr(self, step[1]), x, guidance[step[2]][step[3]])
             elif kind == "save":
                 rem[step[1]] = x
             elif kind == "head" and self.training:
-                outputs.append(getattr(self, step[1])(x))
-        final = self.disp_final(x, guidance["lg1"], guidance["lg2"])
+                outputs.append(_run(blocks, getattr(self, step[1]), x))
+        final = _run(blocks, self.disp_final, x, guidance["lg1"], guidance["lg2"])
         return outputs + [final] if self.training else final
+
+
+def _run(remat: bool, module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    """`module(*args)`, as a checkpoint recomputed in backward when `remat`."""
+    if not remat:
+        return module(*args)
+    return torch.utils.checkpoint.checkpoint(
+        module, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), recomputing()),
+    )

@@ -22,7 +22,9 @@ parameter paths one to one.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
@@ -68,22 +70,41 @@ def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tenso
     return torch.addcmul(t, x, s).to(x.dtype)
 
 
+# Set, in the thread that runs it, while `torch.utils.checkpoint` recomputes
+# a forward in backward.
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The recompute context of `remat`'s checkpoints: `bn_train` inside it
+    does not update the running statistics a second time."""
+    before = getattr(_recompute, "active", False)
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = before
+
+
 def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
     """Train-mode BatchNorm over dim 1: batch moments in float32 (float64
     for a float64 input) as E[x^2] - E[x]^2, the biased variance, clipped at
     0 as flax does; normalised in that precision and cast to the input's
     dtype.  The running statistics take the same biased variance with
     momentum 0.1 (flax's 0.9): `F.batch_norm` would update them with the
-    unbiased one."""
+    unbiased one.  A forward that `remat` runs again in backward (inside
+    `recomputing()`) leaves them alone: they move once a step."""
     dims = [0] + list(range(2, x.dim()))
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = at_least_f32(x)
     m = xf.mean(dim=dims)
     v = torch.clamp_min((xf * xf).mean(dim=dims) - m * m, 0.0)
-    with torch.no_grad():
-        bn.running_mean.lerp_(m.to(bn.running_mean.dtype), bn.momentum)
-        bn.running_var.lerp_(v.to(bn.running_var.dtype), bn.momentum)
-        bn.num_batches_tracked += 1
+    if not getattr(_recompute, "active", False):
+        with torch.no_grad():
+            bn.running_mean.lerp_(m.to(bn.running_mean.dtype), bn.momentum)
+            bn.running_var.lerp_(v.to(bn.running_var.dtype), bn.momentum)
+            bn.num_batches_tracked += 1
     s = bn.weight / torch.sqrt(v + bn.eps)
     return ((xf - m.view(shape)) * s.view(shape) + bn.bias.view(shape)).to(x.dtype)
 

@@ -6,8 +6,12 @@ A checkpoint is a directory `<save_path>/<step>/` holding
   * `model.pt`: `torch.save` of the model's `state_dict` (parameters and
     BatchNorm buffers);
   * `optimizer.pt`: the optimiser's `state_dict`, when one was given;
-  * `meta.json`: the step, the model configuration and any extra fields
-    (the epoch, for example).
+  * `scheduler.pt`: the learning-rate schedule's `state_dict`, when one was
+    given;
+  * `meta.json`: the step (the checkpoint's key: `Trainer.save` keys its
+    checkpoints by the epoch, as the JAX trainer does), the model
+    configuration and any extra fields (`Trainer` stores the epoch and
+    `train_step`, the number of updates made).
 
 A save writes into a temporary directory beside the checkpoints and moves
 it into place with one `os.replace`, so a save killed part-way leaves the
@@ -37,7 +41,7 @@ from ganet_tpu_torch.config import ModelConfig
 from ganet_tpu_torch.models.ganet import GANet
 from ganet_tpu_torch.models.layers import init_weights
 
-_MODEL, _OPTIMIZER, _META = "model.pt", "optimizer.pt", "meta.json"
+_MODEL, _OPTIMIZER, _SCHEDULER, _META = "model.pt", "optimizer.pt", "scheduler.pt", "meta.json"
 
 
 def _steps(root: str) -> list:
@@ -61,6 +65,7 @@ def save_checkpoint(
     step: int,
     model: GANet,
     optimizer: Optional[torch.optim.Optimizer] = None,
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     extra: Optional[Mapping[str, Any]] = None,
     keep: int = 5,
 ) -> str:
@@ -76,6 +81,8 @@ def save_checkpoint(
         torch.save(model.state_dict(), os.path.join(tmp, _MODEL))
         if optimizer is not None:
             torch.save(optimizer.state_dict(), os.path.join(tmp, _OPTIMIZER))
+        if scheduler is not None:
+            torch.save(scheduler.state_dict(), os.path.join(tmp, _SCHEDULER))
         with open(os.path.join(tmp, _META), "w") as f:
             json.dump(meta, f, indent=1)
         final = os.path.join(root, str(int(step)))
@@ -116,6 +123,31 @@ def load_inference_state(save_path: str, step: Optional[int] = None) -> Dict[str
     optimiser state.  Raises FileNotFoundError when there is none."""
     path = os.path.join(_resolve(save_path, step), _MODEL)
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_train_state(save_path: str, step: Optional[int], state) -> Dict[str, Any]:
+    """Restore a `TrainState` in place from the checkpoint of `step` (the
+    newest when None): the model's parameters and BatchNorm buffers, the
+    optimiser's moments, the schedule and `state.step`.  Returns the
+    checkpoint's metadata.  Raises FileNotFoundError when there is no
+    checkpoint, or when it holds weights only."""
+    path = _resolve(save_path, step)
+    with open(os.path.join(path, _META)) as f:
+        meta = json.load(f)
+    missing = [n for n in (_OPTIMIZER, _SCHEDULER) if not os.path.exists(os.path.join(path, n))]
+    if missing or "train_step" not in meta:
+        raise FileNotFoundError(
+            f"{path} holds weights only (no {', '.join(missing) or 'train_step'}); a train"
+            " state is restored from a checkpoint that Trainer.save wrote"
+        )
+    # On the CPU: Adam keeps its step counts there, and load_state_dict moves
+    # the moments to their parameters' device.
+    load = lambda name: torch.load(os.path.join(path, name), map_location="cpu", weights_only=True)  # noqa: E731
+    state.model.load_state_dict(load(_MODEL), strict=True)
+    state.optimizer.load_state_dict(load(_OPTIMIZER))
+    state.scheduler.load_state_dict(load(_SCHEDULER))
+    state.step = int(meta["train_step"])
+    return meta
 
 
 def fresh_init_state(model_cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:

@@ -1,1 +1,1 @@
-"""Utilities of the port: timing on the card."""
+"""Utilities of the port: timing on the card, metric logging."""

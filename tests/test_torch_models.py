@@ -53,7 +53,7 @@ def test_presets_match(name):
     theirs = dataclasses.asdict(J_PRESETS[name]())
     assert ours.pop("impl") == theirs.pop("sga_impl") == "auto"
     assert ours == {k: v for k, v in theirs.items() if k in ours}
-    assert set(theirs) - set(ours) == {"remat", "channel_tp"}  # training / mesh slices
+    assert set(theirs) - set(ours) == {"channel_tp"}  # the mesh slices
 
 
 # (in, features, kernel, stride, is_3d, deconv, relu, input shape NHWC/NDHWC)

@@ -64,7 +64,7 @@ from ganet_tpu_torch.train import (
     make_optimizer,
     make_train_step,
 )
-from tests.torch_parity import nchw, nhwc, seeded_variables
+from tests.torch_parity import he_normal_draw, nchw, nhwc, seeded_variables
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 KEY = jax.random.PRNGKey(0)
@@ -279,18 +279,7 @@ def small_variables():
     jmodel = JGANet(J.ganet_small(D, sga_impl="scan"))
     dummy = jax.ShapeDtypeStruct((1, H, W, 3), jnp.float32)
     shapes = jax.eval_shape(lambda k, a: jmodel.init(k, a, a, train=True), KEY, dummy)
-    rng = np.random.default_rng(0)
-
-    def fill(path, leaf):
-        if path[-1].key != "kernel":
-            return np.zeros(leaf.shape, np.float32)
-        z = rng.standard_normal(leaf.shape)  # a unit normal truncated at +-2
-        while (np.abs(z) > 2).any():
-            z = np.where(np.abs(z) > 2, rng.standard_normal(leaf.shape), z)
-        std = np.sqrt(2.0 / np.prod(leaf.shape[:-1])) / 0.87962566103423978
-        return (z * std).astype(np.float32)
-
-    return seeded_variables(jax.tree_util.tree_map_with_path(fill, shapes))
+    return seeded_variables(he_normal_draw(shapes))
 
 
 def _port_step(tcfg, variables, batch, dtype):

@@ -15,11 +15,25 @@ from typing import Any, Mapping
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ganet_tpu.models.ganet import GANet as JGANet
 from ganet_tpu_torch.entry import build_model, predict
 from ganet_tpu_torch.convert import convert_flax_variables
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two PyTorch intra-op threads for a module's tests (autouse where a
+    test module imports it).  The suite runs several workers on the
+    machine's cores, and PyTorch's OpenMP threads, one a core in each
+    worker, then spin against each other: four processes' GANet_small train
+    steps took 524 s at 8 threads each and 22 s at 2."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _seed_leaves(tree: Mapping[str, Any], rng, in_bn: bool = False) -> dict:
@@ -46,6 +60,24 @@ def seeded_variables(variables: Mapping[str, Any], seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     host = jax.device_get(variables)
     return {col: _seed_leaves(host[col], rng) for col in host}
+
+
+def he_normal_draw(shapes: Mapping[str, Any], seed: int = 0) -> dict:
+    """A tree of flax variables (or of their shapes) filled from a seed:
+    kernels truncated He-normal as flax's `he_normal`, every other leaf 0.
+    Pass the result through `seeded_variables` to seed the BatchNorm leaves."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        if path[-1].key != "kernel":
+            return np.zeros(leaf.shape, np.float32)
+        z = rng.standard_normal(leaf.shape)  # a unit normal truncated at +-2
+        while (np.abs(z) > 2).any():
+            z = np.where(np.abs(z) > 2, rng.standard_normal(leaf.shape), z)
+        std = np.sqrt(2.0 / np.prod(leaf.shape[:-1])) / 0.87962566103423978
+        return (z * std).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def load_converted(module: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:
