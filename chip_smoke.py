@@ -104,7 +104,21 @@ CUDA toolkit.  Phases, each printing its lines:
      and 4; the launches of every run and step against their expected
      counts (K1 and K2 twice a step under remat); and K1-K4 held against
      their plain versions at every volume shape those runs launched them
-     at, float32 and bfloat16.
+     at, float32 and bfloat16;
+ 16. data-parallel training on 2 ranks that share the card over gloo,
+     started by `parallel/launch.py` (GANet_deep at 240x528, max_disp 192,
+     batch 1 a rank): (a) one float32 step (TF32 off, remat none) of the
+     ranks against one step of the same model on the global batch in this
+     process (loss, running statistics, global gradients, parameters; the
+     ranks' parameters the same bits); (b) `python -m ganet_tpu_torch.train
+     --mesh_data 2` in process (this process rank 0; bf16, remat sga, batch
+     2) on phase 15's SceneFlow-shaped files, 1 epoch of 4 steps with
+     evaluation (rows and checkpoints written once, by rank 0), and its
+     checkpoint resumed on one device; (c) each rank's launches a step
+     against their expected counts, its step time, gradient all-reduce time
+     and peak memory (two ranks on one card: not a multi-GPU time); then
+     K1-K4 against their plain versions at every volume shape the ranks
+     launched them at.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -1576,43 +1590,11 @@ FROM_FILES_FRAMES = 1
 BENCH_ITERS = 5
 
 
-# The wrappers whose launches `recording_shapes` records: (count name, the
-# wrapper's name in ops/sga.py or ops/lga.py, and the index of its radius
-# argument, for the LGA kernels).
-RECORDED = (("sga_fwd", "sga_sweep_kernel", None), ("lga_fwd", "lga_kernel", 2),
-            ("sga_bwd", "sga_sweep_bwd_kernel", None), ("lga_bwd", "lga_bwd_kernel", 3))
-
-
-@contextlib.contextmanager
-def recording_shapes(S, G, seen):
-    """Count in `seen` (a Counter) every K1, K2, K3 and K4 launch in the
-    body by kernel, volume shape, dtype (and the LGA kernels' radius).  Each
-    wrapper counts its launches on its module's name, which the recorders
-    hold meanwhile; the counts go back to the wrappers after."""
-    swapped = []
-    for name, attr, radius_at in RECORDED:
-        module = G if attr.startswith("lga") else S
-        fn = getattr(module, attr)
-
-        def rec(x, *args, fn=fn, name=name, radius_at=radius_at, **kw):
-            radius = () if radius_at is None else (args[radius_at - 1],)
-            seen[(name, tuple(x.shape), x.dtype) + radius] += 1
-            return fn(x, *args, **kw)
-
-        rec.launches = fn.launches
-        setattr(module, attr, rec)
-        swapped.append((module, attr, fn, rec))
-    try:
-        yield
-    finally:
-        for module, attr, fn, rec in swapped:
-            fn.launches = rec.launches
-            setattr(module, attr, fn)
-
-
 def recorded_line(seen, launches) -> str:
     """The recorded shapes of a counted run; raises unless the recorders saw
     every launch that the wrappers counted."""
+    from ganet_tpu_torch.utils.profiling import RECORDED
+
     for name, _, _ in RECORDED:
         if sum(n for k, n in seen.items() if k[0] == name) != launches[name]:
             raise AssertionError(f"{name}: recorded {dict(seen)}, counted {launches[name]}")
@@ -1718,6 +1700,7 @@ def phase_from_files(torch, gen, smi) -> None:
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.train.checkpoint import load_inference_state, save_checkpoint
+    from ganet_tpu_torch.utils.profiling import recording_shapes
 
     (H0, W0), (CH, CW), D = KITTI_FRAME, KITTI_CROP, 192
     rng = np.random.default_rng(14)
@@ -1763,7 +1746,7 @@ def phase_from_files(torch, gen, smi) -> None:
                 "--model", "GANet_deep", "--bf16", "1", "--resume", ckpt]
         shapes = Counter()
         torch.cuda.synchronize()
-        with recording_shapes(S, G, shapes):
+        with recording_shapes(shapes):
             reset_counts(S, G)
             t0 = time.perf_counter()
             written = predict_cli.main(data + crop + ["--save_path", out])
@@ -1802,7 +1785,7 @@ def phase_from_files(torch, gen, smi) -> None:
                                  "--kitti2015", "1", "--max_disp", str(D)])
         log(f"[14] evaluate offline over the PNGs: {json.dumps(offline)}")
         seen = Counter()
-        with recording_shapes(S, G, seen):
+        with recording_shapes(seen):
             reset_counts(S, G)
             online = evaluate.main(data + crop)
             launches = read_counts(S, G)
@@ -1819,7 +1802,7 @@ def phase_from_files(torch, gen, smi) -> None:
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
         seen = Counter()
-        with recording_shapes(S, G, seen), contextlib.redirect_stdout(buf):
+        with recording_shapes(seen), contextlib.redirect_stdout(buf):
             reset_counts(S, G)
             bench.main(["--batch", str(batch), "--iters", str(BENCH_ITERS)])
             launches = read_counts(S, G)
@@ -1916,6 +1899,7 @@ def phase_train_from_files(torch, gen, smi) -> None:
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.train import Trainer
     from ganet_tpu_torch.train.checkpoint import load_inference_state
+    from ganet_tpu_torch.utils.profiling import recording_shapes
 
     (H0, W0), (CH, CW), D = SCENEFLOW_FRAME, TRAIN_CROP, 192
     rng = np.random.default_rng(15)
@@ -1925,7 +1909,7 @@ def phase_train_from_files(torch, gen, smi) -> None:
         """Run `fn` with every launch recorded; the counts must be `want`."""
         seen = Counter()
         torch.cuda.synchronize()
-        with recording_shapes(S, G, seen):
+        with recording_shapes(seen):
             reset_counts(S, G)
             t0 = time.perf_counter()
             out = fn()
@@ -2068,6 +2052,197 @@ def phase_train_from_files(torch, gen, smi) -> None:
     hold_at_path_shapes(torch, gen, shapes, "[15]")
 
 
+# Phase 16: data-parallel training on DP_RANKS ranks that share the card over
+# gloo.  (a) parity: one f32 step (TF32 off, remat none) of the 2 ranks at
+# global batch 2 against one step of the same model, init and batch in this
+# process.  Tolerances: the loss within DP_LOSS_RTOL (the forward is
+# deterministic; cuDNN may pick other algorithms for a rank's batch of 1
+# than for the batch of 2, which moves the loss by float32 rounding); the
+# BatchNorm running statistics within DP_STATS_TOL norm-relative; the
+# global gradients (the ranks' sum) against this process's within phase 8's
+# GRAD_TOL_ALL / GRAD_TOL_PARAM, which hold cuDNN's nondeterministic
+# backward; the update of the parameters: Adam's first update moves each
+# element by lr times the sign of its gradient, so the two updates differ by
+# 2 lr where an element's gradient lies within the noise of 0 and moves the
+# other way; of the elements that this process's update moved by more than
+# lr / 2, at most DP_FLIP_SHARE may have moved the other way (or not at all)
+# on the ranks, where a wrong gradient turns about half and a skipped
+# update all; and the parameters the same bits on both ranks.  (b) the train CLI with --mesh_data 2 from phase 15's files.
+# (c) each rank's launches a step, step time, gradient all-reduce time and
+# peak memory (ranks sharing one card: not a multi-GPU time).
+DP_RANKS = 2
+DP_MAX_DISP = 192
+DP_LOSS_RTOL = 1e-5
+DP_STATS_TOL = 1e-4
+DP_FLIP_SHARE = 0.02
+DP_TIMED_STEPS = 4
+
+
+def phase_data_parallel(torch, gen, smi, device: str = "cuda") -> None:
+    """Data-parallel training: parity of 2 ranks with one device, the train
+    CLI with --mesh_data 2 from files, per-rank figures, and K1-K4 held at
+    every shape the ranks launched.  `device` "cpu" rehearses the phase's
+    control flow on the plain versions (no times, no kernels to hold)."""
+    import math
+    import os
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from ganet_tpu_torch import train as train_cli
+    from ganet_tpu_torch.ops import lga as G
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.parallel.launch import launch
+    from ganet_tpu_torch.parallel import dp_cases as K
+    from ganet_tpu_torch.utils.profiling import recording_shapes
+
+    (CH, CW), D = TRAIN_CROP, DP_MAX_DISP
+    cuda = device == "cuda"
+    deep = dict(kind="step", model="GANet_deep", size=(CH, CW), max_disp=D, batch=DP_RANKS, steps=1)
+    cases = [dict(deep, name="parity", remat="none", dtype="float32"),
+             dict(deep, name="timed", remat="sga", dtype="bfloat16", reps=DP_TIMED_STEPS)]
+    shapes = Counter()
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        launch(K.run_cases, DP_RANKS, (cases, out_dir, device), backend="gloo", device=device)
+        log(f"[16] {DP_RANKS} ranks on one card (gloo): GANet_deep {CH}x{CW} D={D} global batch "
+            f"{DP_RANKS}, the parity step and the timed steps in {time.perf_counter() - t0:.1f} s")
+        results = {c["name"]: K.load(c, out_dir, DP_RANKS) for c in cases}
+
+    # (c) launches a step on every rank, against phase 15's counts.
+    for case in cases:
+        want = STEP_LAUNCHES[case["remat"]]
+        for rank, res in enumerate(results[case["name"]]):
+            for launched in res["launches"]:
+                if launched != want:
+                    raise AssertionError(f"[16] {case['name']} rank {rank}: launched {launched} a step, "
+                                         f"expected {want}")
+            shapes.update(res["shapes"])
+        log(f"  [16] {case['name']} (remat {case['remat']}, {case['dtype']}): launches a step on each "
+            f"of the {DP_RANKS} ranks {want} ok")
+
+    # (a) parity against one step in this process on the global batch.
+    ranks = results["parity"]
+    digests = {r["digest"] for r in ranks}
+    ref = K.reference(cases[0], device)
+    got = ranks[0]
+    loss_rel = abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    stats = [k for k in ref["state"] if "running" in k]
+    stats_rel = max(norm_rel(torch, got["state"][k], ref["state"][k]) for k in stats)
+    flat = lambda g: torch.cat([g[n].flatten().double() for n in sorted(g)])  # noqa: E731
+    grad_all = norm_rel(torch, flat(got["grads"]), flat(ref["grads"]))
+    grad_worst = max((norm_rel(torch, got["grads"][n], ref["grads"][n]), n) for n in ref["grads"])
+    lr = K.train_config(cases[0]).optim.lr
+    params = sorted(ref["grads"])
+    step_diff = max((got["state"][n] - ref["state"][n]).abs().max().item() for n in params)
+    moved = flipped = 0
+    for n in params:
+        mine, theirs = ref["state"][n] - ref["init"][n], got["state"][n] - ref["init"][n]
+        sel = mine.abs() > lr / 2
+        moved += int(sel.sum())
+        flipped += int((sel & (mine * theirs <= 0)).sum())
+    total = sum(ref["state"][n].numel() for n in params)
+    flip_share = flipped / max(moved, 1)
+    ok = (len(digests) == 1 and loss_rel <= DP_LOSS_RTOL and stats_rel <= DP_STATS_TOL
+          and grad_all <= GRAD_TOL_ALL and grad_worst[0] <= GRAD_TOL_PARAM
+          and moved > 0 and flip_share <= DP_FLIP_SHARE and math.isfinite(got["losses"][0]))
+    log(f"[16] (a) parity, GANet_deep {CH}x{CW} D={D} f32 (TF32 off) remat none, {DP_RANKS} ranks x "
+        f"batch 1 vs one process x batch {DP_RANKS}: loss {got['losses'][0]:.6f} vs "
+        f"{ref['losses'][0]:.6f} (rel {loss_rel:.2e}, tol {DP_LOSS_RTOL}); running statistics worst "
+        f"{stats_rel:.2e} (tol {DP_STATS_TOL}); global gradients all {grad_all:.2e} (tol "
+        f"{GRAD_TOL_ALL}), worst {grad_worst[0]:.2e} {grad_worst[1]} (tol {GRAD_TOL_PARAM}); "
+        f"update (lr {lr:g}): {moved} of {total} elements moved by more than lr/2 here, of them "
+        f"{flipped} ({flip_share:.3%}, tol {DP_FLIP_SHARE:.0%}) the other way or not at all on the "
+        f"ranks; parameters after the update max |diff| {step_diff:.2e}; "
+        f"state digests of the ranks {'equal' if len(digests) == 1 else 'DIFFER'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[16] the data-parallel step disagrees with the one-device step")
+    del ref, ranks, got
+
+    # (c) per-rank figures of the timed case (bf16, remat sga, batch 1 a rank).
+    for rank, res in enumerate(results["timed"]):
+        if not all(map(math.isfinite, res["losses"])):
+            raise AssertionError(f"[16] timed rank {rank}: losses {res['losses']}")
+        if not cuda:
+            continue
+        log(f"[16] (c) rank {rank}, GANet_deep {CH}x{CW} D={D} bf16 remat sga, batch 1 of global "
+            f"{DP_RANKS}: step {min(res['step_ms']):.1f} ms (min of {len(res['step_ms'])}; all "
+            f"{', '.join(f'{t:.1f}' for t in res['step_ms'])}); gradient all-reduce of "
+            f"{res['grad_mib']:.1f} MiB f32 through the host {min(res['allreduce_ms']):.1f} ms (all "
+            f"{', '.join(f'{t:.1f}' for t in res['allreduce_ms'])}); peak memory "
+            f"{res['peak_gib']:.2f} GiB; {DP_RANKS} ranks share one card: not a multi-GPU time; card {smi}")
+    if len({r["digest"] for r in results["timed"]}) != 1:
+        raise AssertionError("[16] the timed ranks' parameters differ")
+    del results
+
+    # (b) the train CLI, --mesh_data 2, from phase 15's SceneFlow-shaped files.
+    rng = np.random.default_rng(16)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "sceneflow")
+        train_list, _ = write_sceneflow(root, "TRAIN", TRAIN_FRAMES, SCENEFLOW_FRAME, rng)
+        val_list, _ = write_sceneflow(root, "TEST", VAL_FRAMES, (CH, CW), rng)
+        save = os.path.join(tmp, "ckpt")
+        common = ["--model", "GANet_deep", "--max_disp", str(D), "--bf16", "1", "--batchSize", "2",
+                  "--crop_height", str(CH), "--crop_width", str(CW), "--data_path", root,
+                  "--training_list", train_list, "--val_list", val_list, "--log_every", "1",
+                  "--save_path", save] + ([] if cuda else ["--device", "cpu"])
+        # This process is rank 0: its launches are rank 0's, 4 steps and one
+        # evaluation forward (the 2 validation frames, one a rank).
+        seen = Counter()
+        want = {k: FILE_STEPS * v + FORWARD_LAUNCHES.get(k, 0) for k, v in STEP_LAUNCHES["sga"].items()}
+        with recording_shapes(seen):
+            reset_counts(S, G)
+            t0 = time.perf_counter()
+            trainer = train_cli.main(common + ["--mesh_data", str(DP_RANKS), "--nEpochs", "1",
+                                               "--steps", str(FILE_STEPS), "--eval", "1"])
+            if cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_counts(S, G)
+        shapes.update(seen)
+        full = {k: want.get(k, 0) for k in launches}
+        rows, val = train_rows(save, "epoch0"), train_rows(save, "val")
+        files = sorted(os.listdir(save))
+        ok = (launches == full and trainer.cfg.model.remat == "sga" and trainer.data_size == DP_RANKS
+              and [r["step"] for r in rows] == list(range(1, FILE_STEPS + 1))
+              and all(math.isfinite(r["loss"]) for r in rows) and len(val) == 1
+              and files == ["0", "best", "best_epe.json", "train.jsonl"]
+              and sorted(os.listdir(os.path.join(save, "0"))) == [
+                  "meta.json", "model.pt", "optimizer.pt", "scheduler.pt"]
+              and os.listdir(os.path.join(save, "best")) == [str(FILE_STEPS)])
+        log(f"[16] (b) train CLI --mesh_data {DP_RANKS} (bf16, remat sga, batch 2, 1 epoch of "
+            f"{FILE_STEPS} steps, then evaluate): {secs:.2f} s; rank 0 launched {launches} (expected "
+            f"{full}) at {recorded_line(seen, launches)}")
+        log("  [16] (b) rows: " + "; ".join(
+            f"step {r['step']} loss {r['loss']:.4f} epe {r['epe']:.3f}" for r in rows)
+            + f"; val epe {val[-1]['epe']:.3f} over {val[-1]['valid_px']:.0f} px (both frames); "
+            f"{len(rows) + len(val)} rows in train.jsonl (one run's); save_path {files}, 0/ and best/ "
+            f"once {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[16] the data-parallel CLI run did not train, log and save once")
+        del trainer
+
+        # The 2-rank checkpoint resumes on one device.
+        trainer = train_cli.main(common + ["--nEpochs", "2", "--steps", "1"])
+        rows = train_rows(save, "epoch1")
+        ok = (trainer.start_epoch == 1 and trainer.mesh is None and [r["step"] for r in rows] == [5]
+              and math.isfinite(rows[0]["loss"]))
+        log(f"[16] (b) resumed on one device: start_epoch {trainer.start_epoch}, step "
+            f"{rows[0]['step']} loss {rows[0]['loss']:.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[16] the 2-rank checkpoint did not resume on one device")
+        del trainer
+    if cuda:
+        torch.cuda.empty_cache()
+        log(f"[16] K1-K4 against their plain versions at the {len(shapes)} volume shapes the "
+            "ranks launched")
+        hold_at_path_shapes(torch, gen, shapes, "[16]")
+
+
 def main() -> int:
     try:
         import torch
@@ -2139,6 +2314,10 @@ def main() -> int:
         log(f"[15] training from files: train, resume, left_right, predict, remat "
             f"({time.perf_counter() - t0:.1f} s)")
         phase_train_from_files(torch, gen, smi)
+    if want(16):
+        log(f"[16] data-parallel training on {DP_RANKS} ranks sharing the card "
+            f"({time.perf_counter() - t0:.1f} s)")
+        phase_data_parallel(torch, gen, smi)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

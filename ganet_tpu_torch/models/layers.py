@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ganet_tpu_torch.ops.normalize import at_least_f32
+from ganet_tpu_torch.parallel.comm import all_reduce_sum
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -87,19 +88,46 @@ def recomputing():
         _recompute.active = before
 
 
+def sync_batch_norm(module: nn.Module, group) -> None:
+    """Train-mode BatchNorm in `module` takes its batch moments over the
+    ranks of `group` (the mesh's `data` axis), as flax's BatchNorm under
+    GSPMD takes them over the global batch; None: over this rank's batch.
+    The group is kept on each BatchNorm module, so that `remat`'s
+    recompute, which runs in the autograd engine's thread, reaches it
+    too."""
+    for m in module.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.data_group = group
+
+
 def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
     """Train-mode BatchNorm over dim 1: batch moments in float32 (float64
     for a float64 input) as E[x^2] - E[x]^2, the biased variance, clipped at
     0 as flax does; normalised in that precision and cast to the input's
     dtype.  The running statistics take the same biased variance with
     momentum 0.1 (flax's 0.9): `F.batch_norm` would update them with the
-    unbiased one.  A forward that `remat` runs again in backward (inside
-    `recomputing()`) leaves them alone: they move once a step."""
+    unbiased one (and so would `nn.SyncBatchNorm`).  A forward that `remat`
+    runs again in backward (inside `recomputing()`) leaves them alone: they
+    move once a step.
+
+    With a `data_group` (`sync_batch_norm`) the moments are global: the
+    sums of x and x^2 and the element count are summed over the group's
+    ranks in one all-reduce, whose backward sums their cotangents, and a
+    recompute issues it again as the forward did."""
     dims = [0] + list(range(2, x.dim()))
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = at_least_f32(x)
-    m = xf.mean(dim=dims)
-    v = torch.clamp_min((xf * xf).mean(dim=dims) - m * m, 0.0)
+    group = getattr(bn, "data_group", None)
+    if group is None:
+        m = xf.mean(dim=dims)
+        ex2 = (xf * xf).mean(dim=dims)
+    else:
+        C = x.shape[1]
+        local = torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                           xf.new_full((1,), x.numel() // C)])
+        sums = all_reduce_sum(local, group)
+        m, ex2 = sums[:C] / sums[2 * C], sums[C : 2 * C] / sums[2 * C]
+    v = torch.clamp_min(ex2 - m * m, 0.0)
     if not getattr(_recompute, "active", False):
         with torch.no_grad():
             bn.running_mean.lerp_(m.to(bn.running_mean.dtype), bn.momentum)

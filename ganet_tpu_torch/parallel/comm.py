@@ -1,17 +1,22 @@
-"""Point-to-point exchanges along a process group: the counterpart of
-`lax.ppermute` in the JAX package's sharded ops.
+"""Collectives along a process group: the point-to-point exchanges that
+stand for `lax.ppermute` in the JAX package's sharded ops, and the sums
+that stand for the all-reduces XLA inserts into a data-parallel step.
 
 A shard sends rows to its neighbours along the `space` axis.  All
 transfers of one step go in one `dist.batch_isend_irecv` call, which
-returns when every one of them is done.
+returns when every one of them is done.  A data-parallel step sums
+BatchNorm moments, valid-pixel counts, metrics and gradients over the
+`data` axis with `all_reduce_` (in place) and `all_reduce_sum`
+(differentiable).
 
 Backends.  The caller picks the backend when it initialises the process
 group; nothing here switches it.
-  * gloo moves CPU tensors only, so CUDA tensors are staged through host
-    memory explicitly: a send copies to the host, a receive lands in a host
-    buffer and is copied to the device.  This is the route when several
-    ranks share one card (NCCL refuses two ranks of a communicator on one
-    device), and on the CPU.
+  * gloo is the route when several ranks share one card (NCCL refuses two
+    ranks of a communicator on one device), and on the CPU.  Its
+    point-to-point transfers move CPU tensors only, so CUDA tensors are
+    staged through host memory explicitly: a send copies to the host, a
+    receive lands in a host buffer and is copied to the device.  Its
+    all_reduce takes CUDA tensors and stages them through the host itself.
   * nccl moves device tensors directly.  `check_group` raises when two
     ranks of the group share a device.
 """
@@ -19,7 +24,7 @@ group; nothing here switches it.
 from __future__ import annotations
 
 import socket
-from typing import Sequence, Tuple
+from typing import Iterable, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -80,6 +85,48 @@ def exchange(
     for buf, dst in landed:
         if dst is not buf:
             buf.copy_(dst)
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum contiguous `t` over the ranks of `group` in place; returns it.
+    Every rank gets the same bits."""
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group):
+        ctx.group = group
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # Every rank's output is the sum of every rank's input, so the
+        # cotangent of an input is the sum of the ranks' cotangents.
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, as a new tensor;
+    differentiable: its backward sums the cotangents over the ranks."""
+    return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_grads(params: Iterable[torch.nn.Parameter], group=None) -> None:
+    """Sum the parameters' gradients over the ranks of `group` in place,
+    through one flat buffer a dtype.  Call it after backward, so that it
+    cannot interleave with the collectives that backward issues on the
+    same group.  Parameters without a gradient are left out; every rank
+    must leave out the same ones."""
+    by_dtype: dict = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
 
 def _halo_swap(lo: torch.Tensor, hi: torch.Tensor, group):

@@ -5,8 +5,10 @@ The JAX package lays its devices out as a (data, space, disp) mesh; here
 each device is one rank of `torch.distributed`, laid out row-major over
 (data, space, disp) as `make_mesh` reshapes the device list there, and
 each axis is a set of process groups: one group for every line of ranks
-along that axis.  This slice uses the `space` axis only (the H-sharded
-SGA wavefront and halo LGA, `parallel/sharded_sga.py` and
+along that axis.  The `data` axis carries data-parallel training (the
+train step sums BatchNorm moments, losses, metrics and gradients over
+`data_group`, `train/trainer.py`); the `space` axis the H-sharded SGA
+wavefront and halo LGA (`parallel/sharded_sga.py`,
 `parallel/sharded_lga.py`).
 
 The JAX module's `batch_sharding`, `volume_sharding` and `constrain_*`
@@ -38,6 +40,10 @@ class Mesh:
 
     def size(self, axis: str) -> int:
         return getattr(self.cfg, axis)
+
+    @property
+    def data_group(self) -> dist.ProcessGroup:
+        return self.groups["data"]
 
     @property
     def space_group(self) -> dist.ProcessGroup:

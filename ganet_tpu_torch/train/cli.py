@@ -8,6 +8,10 @@ its flags and defaults), run as `python -m ganet_tpu_torch.train`:
     python -m ganet_tpu_torch.train --model GANet_small --synthetic_data 1 \\
         --crop_height 48 --crop_width 96 --max_disp 24 --device cpu
 
+    python -m ganet_tpu_torch.train --mesh_data 4 --batchSize 8 ...
+    torchrun --nproc_per_node 4 -m ganet_tpu_torch.train --distributed 1 \
+        --mesh_data 4 --batchSize 8 ...
+
 It trains on the CUDA device unless --device names another; without a card
 and without --device cpu it raises.  The default is --remat sga, as in the
 reference.  --sga_impl takes the port's `impl` names (auto, torch, kernel)
@@ -15,7 +19,16 @@ and the JAX package's (scan runs the plain versions, pallas the kernels).
 --log_every is the port's own (the rows of `train.jsonl`).
 --compile_cache is accepted for the reference's command lines and does
 nothing: it sets XLA's compilation cache, which PyTorch does not have.
-Meshes above one device, --distributed 1 and --channel_tp 1 raise
+
+--mesh_data N trains data-parallel on N ranks of `torch.distributed`, the
+counterpart of one JAX process that owns N devices: this process is rank 0
+and starts the others on this host (`parallel/launch.py`), each on card
+rank % device count (--device cpu: on the CPU), joined by NCCL when every
+rank has a card of its own and by gloo otherwise.  --batchSize is the
+global batch, which N must divide.  With --distributed 1 this process is
+one rank of a world that is already running (`env://`, as `torchrun` sets
+it up), whose size must be N.  Rank 0 alone prints, logs and writes the
+checkpoints.  --mesh_space or --mesh_disp above 1 and --channel_tp 1 raise
 NotImplementedError: they are not ported.
 """
 
@@ -32,7 +45,8 @@ from ganet_tpu_torch.config import (
     TrainConfig,
     model_config,
 )
-from ganet_tpu_torch.train.trainer import Trainer
+from ganet_tpu_torch.parallel.launch import default_backend, join_world, launch
+from ganet_tpu_torch.train.trainer import Trainer, check_train_mesh
 
 # The JAX package's --sga_impl values, as the port's `impl`.
 JAX_IMPLS = {"scan": "torch", "pallas": "kernel"}
@@ -62,7 +76,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sparse_frac", type=float, default=0.0,
                    help="synthetic data: thin the ground truth to about this valid fraction")
     p.add_argument("--steps", type=int, default=0, help="steps per epoch cap")
-    p.add_argument("--mesh_data", type=int, default=1, help="mesh: not ported above 1")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel ranks (this host starts them unless --distributed 1)")
     p.add_argument("--mesh_space", type=int, default=1, help="mesh: not ported above 1")
     p.add_argument("--mesh_disp", type=int, default=1, help="mesh: not ported above 1")
     p.add_argument("--channel_tp", type=int, default=0, help="channel TP: not ported")
@@ -72,7 +87,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sga_impl", type=str, default="auto", choices=IMPLS + tuple(JAX_IMPLS))
     p.add_argument("--remat", type=str, default="sga", choices=REMATS,
                    help="rematerialisation: recompute in backward to save activation memory")
-    p.add_argument("--distributed", type=int, default=0, help="multi-process: not ported")
+    p.add_argument("--distributed", type=int, default=0,
+                   help="join a running world of --mesh_data ranks (env://, as torchrun sets it)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches staged by the background input thread; 0 disables it")
     p.add_argument("--compile_cache", type=int, default=1,
@@ -83,23 +99,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def check_unported(args: argparse.Namespace) -> None:
-    """Raise for the flags whose paths are not ported."""
-    if max(args.mesh_data, args.mesh_space, args.mesh_disp) > 1 or args.distributed:
-        raise NotImplementedError(
-            f"--mesh_data {args.mesh_data} --mesh_space {args.mesh_space} --mesh_disp"
-            f" {args.mesh_disp} --distributed {args.distributed}: the port trains on one device;"
-            " data-parallel training (ROADMAP queue 1 #6) and spatial sharding of the model"
-            " (queue 1 #7) are not ported yet"
-        )
+def build_config(args: argparse.Namespace) -> TrainConfig:
+    """The `TrainConfig` of the flags; raises NotImplementedError for those
+    whose paths are not ported."""
     if args.channel_tp:
         raise NotImplementedError(
             "--channel_tp 1: channel tensor parallelism (ROADMAP queue 1 #8) is not ported yet"
         )
-
-
-def build_config(args: argparse.Namespace) -> TrainConfig:
-    check_unported(args)
+    mesh = MeshConfig(data=args.mesh_data, space=args.mesh_space, disp=args.mesh_disp)
+    check_train_mesh(mesh)
     kind = (
         "synthetic"
         if args.synthetic_data
@@ -130,7 +138,7 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
             sparse_frac=args.sparse_frac,
         ),
         optim=OptimConfig(lr=args.lr, decay_epoch=args.lr_decay_epoch or None),
-        mesh=MeshConfig(data=args.mesh_data, space=args.mesh_space, disp=args.mesh_disp),
+        mesh=mesh,
         batch_size=args.batchSize,
         num_epochs=args.nEpochs,
         steps_per_epoch=args.steps or None,
@@ -141,16 +149,21 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
     )
 
 
-def main(argv=None) -> Trainer:
-    """Run the CLI; returns the (closed) trainer."""
-    args = parse_args(argv)
+def run(rank: int, world: int, args: argparse.Namespace) -> Trainer:
+    """Train (and evaluate) the flags' configuration as rank `rank` of
+    `world` (0 of 1 on one device); returns the closed trainer."""
     cfg = build_config(args)
-    trainer = Trainer(cfg, device=args.device)
-    print(
-        f"model={cfg.model.name} max_disp={cfg.model.max_disp} "
-        f"crop={cfg.data.crop_height}x{cfg.data.crop_width} batch={cfg.batch_size} "
-        f"remat={cfg.model.remat} device={trainer.device} start_epoch={trainer.start_epoch}"
-    )
+    if world != cfg.mesh.num_devices:
+        raise ValueError(f"--mesh_data {cfg.mesh.data} needs a world of as many ranks, got {world}")
+    # A rank of several takes the card that its launcher set as current.
+    trainer = Trainer(cfg, device=args.device if world == 1 or args.device == "cpu" else None)
+    if trainer.is_lead:
+        print(
+            f"model={cfg.model.name} max_disp={cfg.model.max_disp} "
+            f"crop={cfg.data.crop_height}x{cfg.data.crop_width} batch={cfg.batch_size} "
+            f"remat={cfg.model.remat} mesh_data={cfg.mesh.data} device={trainer.device} "
+            f"start_epoch={trainer.start_epoch}"
+        )
     try:
         trainer.fit()
         if args.eval:
@@ -158,3 +171,17 @@ def main(argv=None) -> Trainer:
     finally:
         trainer.close()
     return trainer
+
+
+def main(argv=None) -> Trainer:
+    """Run the CLI; returns the (closed) trainer, rank 0's with a mesh."""
+    args = parse_args(argv)
+    cfg = build_config(args)
+    device = "cpu" if args.device == "cpu" else "cuda"
+    if args.distributed:
+        return join_world(run, (args,), device=device)
+    if cfg.mesh.data > 1:
+        n = cfg.mesh.data
+        backend = default_backend(device, n)
+        return launch(run, n, (args,), backend=backend, device=device, caller_rank=True)
+    return run(0, 1, args)

@@ -1,12 +1,15 @@
 """Train state: the model (parameters and BatchNorm statistics), Adam and
-its learning-rate schedule (counterpart of `ganet_tpu/train/state.py`)."""
+its learning-rate schedule (counterpart of `ganet_tpu/train/state.py`),
+and the process group of a data-parallel run."""
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ganet_tpu_torch.config import OptimConfig
 from ganet_tpu_torch.models.ganet import GANet
@@ -36,14 +39,27 @@ def make_optimizer(
 @dataclasses.dataclass
 class TrainState:
     """What a train step updates in place: the model's parameters and
-    running statistics, the optimiser's moments, the schedule, the step."""
+    running statistics, the optimiser's moments, the schedule, the step;
+    and `group`, the mesh's `data` axis that the step sums over (None on
+    one device)."""
 
     model: GANet
     optimizer: torch.optim.Adam
     scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
+    group: Optional[dist.ProcessGroup] = None
 
     @property
     def lr(self) -> float:
         """The learning rate of the next update, read from the scheduler."""
         return self.scheduler.get_last_lr()[0]
+
+
+def model_digest(model: torch.nn.Module) -> str:
+    """SHA-256 of the model's state_dict (names, dtypes, shapes and bytes of
+    the parameters and BatchNorm buffers): equal digests, equal bits."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(f"{name} {t.dtype} {tuple(t.shape)};".encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()

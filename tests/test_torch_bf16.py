@@ -47,7 +47,7 @@ from ganet_tpu_torch.config import ganet_deep, ganet_small
 from ganet_tpu_torch.convert import convert_flax_variables
 from ganet_tpu_torch.models import BasicConv, SGABlock
 from ganet_tpu_torch.models.aggregation import DispAggHead
-from tests.torch_parity import load_converted, nchw, nhwc, seeded_variables
+from tests.torch_parity import load_converted, nchw, nhwc, seeded_variables, two_torch_threads  # noqa: F401
 
 FACTOR = 1.5
 KEY = jax.random.PRNGKey(0)

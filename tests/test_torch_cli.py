@@ -35,7 +35,7 @@ from ganet_tpu_torch.convert import convert_flax_variables
 from ganet_tpu_torch.ops import dispatch
 from ganet_tpu_torch.ops.sga import SGA_MAX_D
 from ganet_tpu_torch.train.checkpoint import save_checkpoint
-from torch_parity import seeded_variables
+from torch_parity import seeded_variables, two_torch_threads  # noqa: F401
 
 j_sga = importlib.import_module("ganet_tpu.ops.sga")
 

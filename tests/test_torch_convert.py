@@ -14,7 +14,7 @@ from ganet_tpu.models import GANet as JGANet
 from ganet_tpu_torch.config import model_config
 from ganet_tpu_torch.convert import convert_flax_variables
 from ganet_tpu_torch.models import GANet
-from tests.torch_parity import seeded_variables
+from tests.torch_parity import seeded_variables, two_torch_threads  # noqa: F401
 
 
 def _variable_tree(name: str, rng) -> dict:

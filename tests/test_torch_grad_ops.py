@@ -29,6 +29,7 @@ from ganet_tpu.ops import lga_pallas, sga_pallas
 from ganet_tpu_torch.ops import dispatch
 from ganet_tpu_torch.ops import lga as t_lga
 from ganet_tpu_torch.ops import sga as t_sga
+from tests.torch_parity import two_torch_threads  # noqa: F401
 
 j_sga = importlib.import_module("ganet_tpu.ops.sga")
 j_lga = importlib.import_module("ganet_tpu.ops.lga")

@@ -38,7 +38,7 @@ from ganet_tpu_torch.data import lists as tlists
 from ganet_tpu_torch.data import pfm as tpfm
 from ganet_tpu_torch.data import png
 from ganet_tpu_torch.train import checkpoint as ckpt
-from torch_parity import seeded_variables
+from torch_parity import seeded_variables, two_torch_threads  # noqa: F401
 
 
 def _smooth(rng, shape):

@@ -24,6 +24,7 @@ from ganet_tpu.ops import dispatch as j_dispatch
 from ganet_tpu.ops import lga_pallas
 from ganet_tpu_torch.ops import dispatch
 from ganet_tpu_torch.ops import lga as t_lga
+from tests.torch_parity import two_torch_threads  # noqa: F401
 
 j_lga = importlib.import_module("ganet_tpu.ops.lga")
 

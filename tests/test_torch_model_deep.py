@@ -25,7 +25,7 @@ from ganet_tpu.models.ganet import GANet as JGANet
 from ganet_tpu_torch.entry import build_model, predict
 from ganet_tpu_torch.config import ganet_deep
 from ganet_tpu_torch.convert import convert_flax_variables
-from tests.torch_parity import ganet_parity, seeded_variables
+from tests.torch_parity import ganet_parity, seeded_variables, two_torch_threads  # noqa: F401
 
 
 def test_ganet_deep_forward():

@@ -27,7 +27,9 @@ from ganet_tpu.models.layers import BasicConv as JBasicConv
 from ganet_tpu.models.layers import Conv2x as JConv2x
 from ganet_tpu_torch.config import MODEL_PRESETS, ganet_deep, ganet_small
 from ganet_tpu_torch.models import BasicConv, Conv2x, FeatureNet, GuidanceNet, SGABlock
-from tests.torch_parity import ganet_parity, load_converted, nchw, nhwc, seeded_variables
+from tests.torch_parity import (  # noqa: F401
+    ganet_parity, load_converted, nchw, nhwc, seeded_variables, two_torch_threads,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 KEY = jax.random.PRNGKey(0)

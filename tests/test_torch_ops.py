@@ -31,6 +31,7 @@ from ganet_tpu_torch.ops import (
 )
 from ganet_tpu_torch.ops import lga as t_lga
 from ganet_tpu_torch.ops import sga as t_sga
+from tests.torch_parity import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SWEEPS = [("w", False), ("w", True), ("h", False), ("h", True)]

@@ -20,6 +20,7 @@ import torch
 
 from ganet_tpu.ops import sga_pallas
 from ganet_tpu_torch.ops import sga as t_sga
+from tests.torch_parity import two_torch_threads  # noqa: F401
 
 j_sga = importlib.import_module("ganet_tpu.ops.sga")
 

@@ -29,6 +29,7 @@ from ganet_tpu.parallel.sharded_lga import sharded_lga as j_sharded_lga
 from ganet_tpu_torch.parallel import cases as K
 from ganet_tpu_torch.parallel.launch import launch
 from ganet_tpu_torch.parallel.sharded_lga import sharded_lga
+from tests.torch_parity import two_torch_threads  # noqa: F401
 
 j_ssga = importlib.import_module("ganet_tpu.parallel.sharded_sga")
 t_ssga = importlib.import_module("ganet_tpu_torch.parallel.sharded_sga")

@@ -64,7 +64,9 @@ from ganet_tpu_torch.train import (
     make_optimizer,
     make_train_step,
 )
-from tests.torch_parity import he_normal_draw, nchw, nhwc, seeded_variables
+from tests.torch_parity import (  # noqa: F401
+    he_normal_draw, nchw, nhwc, seeded_variables, two_torch_threads,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 KEY = jax.random.PRNGKey(0)
@@ -335,7 +337,9 @@ def test_train_step_matches_jax(small_variables, left_right):
 
 def test_train_and_eval_steps_run_and_learn():
     """A few Adam steps on one fixed batch lower the loss; the eval step is
-    the eval-mode forward's metrics; the trainer takes one device only."""
+    the eval-mode forward's metrics; a mesh sharded over `space` is
+    refused, and a `data` axis needs the ranks of a running world
+    (tests/test_torch_ddp.py trains on one)."""
     cfg = C.TrainConfig(model=C.ganet_small(D),
                         data=C.DataConfig(crop_height=H, crop_width=W, kind="synthetic"),
                         optim=C.OptimConfig(lr=3e-3), batch_size=2)
@@ -351,5 +355,7 @@ def test_train_and_eval_steps_run_and_learn():
     want = disparity_metrics(disp, torch.from_numpy(batch["disparity"]), torch.from_numpy(batch["valid"]))
     for k in want:
         assert metrics[k].item() == pytest.approx(want[k].item(), rel=1e-6), k
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        create_train_state(dataclasses.replace(cfg, mesh=C.MeshConfig(space=2)), device="cpu")
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         create_train_state(dataclasses.replace(cfg, mesh=C.MeshConfig(data=2)), device="cpu")

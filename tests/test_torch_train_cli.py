@@ -7,13 +7,18 @@ for field; the model's `impl` stands for JAX's `sga_impl` (scan runs the
 plain versions, pallas the kernels), and `channel_tp`, which the port
 lacks, is off.  Flags whose paths are not ported raise.  Then the CLI
 trains GANet_small for 2 steps on synthetic data and writes a checkpoint
-that the port's predict CLI loads.
+that the port's predict CLI loads; trains it on 2 ranks (--mesh_data 2,
+this process rank 0) and resumes the checkpoint on one device; and joins
+a world that the environment describes (--distributed 1).
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
-import subprocess
+import runpy
+import socket
 import sys
 
 import pytest
@@ -25,7 +30,6 @@ from ganet_tpu_torch.train import build_config, main, parse_args
 from ganet_tpu_torch.train.checkpoint import load_inference_state
 from tests.torch_parity import two_torch_threads  # noqa: F401
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMPL = {"auto": "auto", "scan": "torch", "pallas": "kernel"}
 
 ARGVS = {
@@ -45,6 +49,8 @@ ARGVS = {
                   "--max_disp", "24", "--remat", "none", "--eval", "1"],
     "ganet11_pallas": ["--model", "GANet11", "--sga_impl", "pallas", "--compile_cache", "0"],
     "scan": ["--sga_impl", "scan"],
+    "mesh_data": ["--mesh_data", "2", "--batchSize", "4"],
+    "distributed": ["--distributed", "1", "--mesh_data", "4", "--batchSize", "8"],
 }
 
 
@@ -69,8 +75,7 @@ def test_flags_and_defaults_match_train_py():
     assert mine["remat"] == "sga" and mine["batchSize"] == 2
 
 
-@pytest.mark.parametrize("argv", [["--mesh_data", "2"], ["--mesh_space", "2"], ["--mesh_disp", "2"],
-                                  ["--distributed", "1"], ["--channel_tp", "1"]],
+@pytest.mark.parametrize("argv", [["--mesh_space", "2"], ["--mesh_disp", "2"], ["--channel_tp", "1"]],
                          ids=lambda a: a[0][2:])
 def test_unported_flags_raise(argv):
     j_train.build_config(j_train.parse_args(argv))  # the reference takes them
@@ -105,9 +110,62 @@ def test_trains_and_writes_a_checkpoint_predict_loads(tmp_path):
         assert torch.equal(weights[k], v), k
 
 
-def test_runs_as_a_module():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-m", "ganet_tpu_torch.train", "--help"], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert "--remat" in out.stdout and "--device" in out.stdout
+def _rows(save):
+    with open(os.path.join(save, "train.jsonl")) as f:
+        return [(r["prefix"], r["step"]) for r in map(json.loads, f)]
+
+
+def test_trains_on_two_ranks_and_resumes_on_one_device(tmp_path):
+    """--mesh_data 2: this process is rank 0 and gets its trainer back; the
+    rows and the checkpoint are one run's (rank 1 logs and writes
+    nothing), and the checkpoint resumes on one device."""
+    save = str(tmp_path / "ckpt")
+    argv = SMALL + ["--batchSize", "2", "--steps", "2", "--log_every", "1", "--remat", "none",
+                    "--save_path", save, "--device", "cpu"]
+    trainer = main(argv + ["--mesh_data", "2", "--nEpochs", "1"])
+    assert (trainer.data_index, trainer.data_size) == (0, 2) and trainer.state.step == 2
+    assert trainer.train_iter.local_batch == 1
+    assert _rows(save) == [("epoch0", 1), ("epoch0", 2)]
+    assert sorted(os.listdir(save)) == ["0", "train.jsonl"]
+    assert sorted(os.listdir(os.path.join(save, "0"))) == [
+        "meta.json", "model.pt", "optimizer.pt", "scheduler.pt"]
+    final = {k: v.clone() for k, v in trainer.state.model.state_dict().items()}
+    for k, v in load_inference_state(save).items():
+        assert torch.equal(v, final[k]), k
+
+    resumed = main(argv + ["--nEpochs", "2"])
+    assert resumed.mesh is None and resumed.start_epoch == 1 and resumed.state.step == 4
+    assert _rows(save) == [("epoch0", 1), ("epoch0", 2), ("epoch1", 3), ("epoch1", 4)]
+
+
+def test_joins_a_world_from_the_environment(tmp_path, monkeypatch):
+    """--distributed 1 joins the env:// world (here of one rank); its size
+    must be --mesh_data."""
+    def world_of_one():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                         WORLD_SIZE="1").items():
+            monkeypatch.setenv(k, v)
+
+    save = str(tmp_path / "ckpt")
+    argv = SMALL + ["--distributed", "1", "--batchSize", "1", "--nEpochs", "1", "--steps", "1",
+                    "--remat", "none", "--save_path", save, "--device", "cpu"]
+    world_of_one()
+    trainer = main(argv)
+    assert trainer.state.step == 1 and _rows(save) == [("epoch0", 1)]
+    assert not torch.distributed.is_initialized()
+    world_of_one()
+    with pytest.raises(ValueError, match="world"):
+        main(argv + ["--mesh_data", "2"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_runs_as_a_module(monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["ganet_tpu_torch.train", "--help"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as exit_:
+        runpy.run_module("ganet_tpu_torch.train", run_name="__main__", alter_sys=True)
+    assert exit_.value.code == 0
+    assert "--remat" in out.getvalue() and "--device" in out.getvalue()
