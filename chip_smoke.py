@@ -559,8 +559,7 @@ def phase_main_path(torch, gen, smi, entries):
     """GANet_deep 576x960 D=192 bf16: counted run, then timed runs."""
     from ganet_tpu_torch import ganet_deep
     from ganet_tpu_torch.entry import build_model, predict
-    from ganet_tpu_torch.ops import lga as G
-    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.utils.profiling import read_launches, reset_launches
 
     cfg = ganet_deep(max_disp=192, compute_dtype="bfloat16")
     model = build_model(cfg, seed=0)
@@ -570,10 +569,10 @@ def phase_main_path(torch, gen, smi, entries):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_counts(S, G)
+    reset_launches()
     disp = predict(model, left, right)
     torch.cuda.synchronize()
-    launches = read_counts(S, G)
+    launches = read_launches()
     log(f"[5] launches in one forward: {launches}")
     if any(launches[k] for k in ("sga_bwd", "lga_bwd", "sga_fwd_seeded", "sga_bwd_seeded", "lga3d_fwd")):
         raise AssertionError("the eval forward launched a gradient, seeded or lga3d kernel")
@@ -603,23 +602,6 @@ def phase_main_path(torch, gen, smi, entries):
         f"{min(times):.1f} ms (min of 3; all {', '.join(f'{t:.1f}' for t in times)}); "
         f"peak memory {peak:.2f} GiB; card {smi}")
     profile_forward(torch, lambda: predict(model, left, right))
-
-
-def reset_counts(S, G) -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    for fn in (S.sga_sweep_kernel, G.lga_kernel, S.sga_sweep_bwd_kernel, G.lga_bwd_kernel,
-               S.sga_sweep_seeded_kernel, S.sga_sweep_bwd_seeded_kernel, G.lga3d_kernel):
-        fn.launches = 0
-
-
-def read_counts(S, G) -> dict:
-    return {
-        "sga_fwd": S.sga_sweep_kernel.launches, "lga_fwd": G.lga_kernel.launches,
-        "sga_bwd": S.sga_sweep_bwd_kernel.launches, "lga_bwd": G.lga_bwd_kernel.launches,
-        "sga_fwd_seeded": S.sga_sweep_seeded_kernel.launches,
-        "sga_bwd_seeded": S.sga_sweep_bwd_seeded_kernel.launches,
-        "lga3d_fwd": G.lga3d_kernel.launches,
-    }
 
 
 # Kernel-name fragments of each group in the device time.
@@ -1272,12 +1254,11 @@ def phase_sharded(torch, smi, entries):
         # Launches on every rank: 2 K1 + 2 x nchunks K5 forward, 2 K3 + 2 x nchunks K6 backward.
         if case["op"] == "sga":
             n = len(chunk_layout(case["shape"][-1], case.get("chunks", 0))[1])
-            want = {"sga_fwd": 2, "sga_fwd_seeded": 2 * n, "sga_bwd": 2 * grad, "sga_bwd_seeded": 2 * n * grad,
-                    "lga_fwd": 0, "lga_bwd": 0}
+            want = {"sga_fwd": 2, "sga_fwd_seeded": 2 * n, "sga_bwd": 2 * grad, "sga_bwd_seeded": 2 * n * grad}
         else:
-            want = {"sga_fwd": 0, "sga_fwd_seeded": 0, "sga_bwd": 0, "sga_bwd_seeded": 0,
-                    "lga_fwd": case["repeats"], "lga_bwd": case["repeats"] * grad}
+            want = {"lga_fwd": case["repeats"], "lga_bwd": case["repeats"] * grad}
         for rank, got_counts in enumerate(res["launches"]):
+            want = {k: want.get(k, 0) for k in got_counts}
             if got_counts != want:
                 raise AssertionError(f"{tag}: rank {rank} launched {got_counts}, expected {want}")
         log(f"  {tag}: launches on each rank {want}")
@@ -1371,8 +1352,7 @@ def phase_train_path(torch, smi, entries):
     more steps on the same batch, timed, then a profile."""
     from ganet_tpu_torch.config import DataConfig, TrainConfig, ganet_deep
     from ganet_tpu_torch.data import SyntheticStereoDataset, stack
-    from ganet_tpu_torch.ops import lga as G
-    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.utils.profiling import read_launches, reset_launches
     from ganet_tpu_torch.train import create_train_state, make_train_step
 
     H, W, D, B = 240, 528, 192, 2
@@ -1388,10 +1368,10 @@ def phase_train_path(torch, smi, entries):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_counts(S, G)
+    reset_launches()
     metrics = step(state, batch)
     torch.cuda.synchronize()
-    launches = read_counts(S, G)
+    launches = read_launches()
     log(f"[9] launches in one train step: {launches}")
     n_sga = 4 * (cfg.model.num_sga_full + cfg.model.num_sga_half)
     n_lga = 2 * cfg.model.lga_repeats
@@ -1434,10 +1414,12 @@ def phase_train_path(torch, smi, entries):
     state.optimizer.zero_grad(set_to_none=True)
 
 
-def expect_launches(torch, S, G, tag: str, want: dict) -> dict:
+def expect_launches(torch, tag: str, want: dict) -> dict:
     """Read the counts after a run; every kernel not in `want` must be 0."""
+    from ganet_tpu_torch.utils.profiling import read_launches
+
     torch.cuda.synchronize()
-    got = read_counts(S, G)
+    got = read_launches()
     full = {k: want.get(k, 0) for k in got}
     if got != full:
         raise AssertionError(f"{tag}: launched {got}, expected {full}")
@@ -1468,7 +1450,7 @@ def phase_lga3d(torch, gen, smi):
     JSON entry (one bf16 pass over the full-res volume)."""
     from ganet_tpu_torch.ops import dispatch
     from ganet_tpu_torch.ops import lga as G
-    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.utils.profiling import reset_launches
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
     r = 2
@@ -1504,9 +1486,9 @@ def phase_lga3d(torch, gen, smi):
         tag = f"lga3d {tuple(x.shape)} r{r} {str(dtype)[6:]}"
         errs, counted = {}, {}
         for repeats in (1, 2):
-            reset_counts(S, G)
+            reset_launches()
             got = dispatch.lga3d_ncdhw(x, g, r, repeats)
-            counted[repeats] = expect_launches(torch, S, G, f"{tag} repeats {repeats}", {"lga3d_fwd": repeats})
+            counted[repeats] = expect_launches(torch, f"{tag} repeats {repeats}", {"lga3d_fwd": repeats})
             ref = G.lga3d_reference_ncdhw(x, g, r, repeats)
             errs[repeats] = compare(torch, f"{tag} repeats {repeats}", got, ref)
             del got, ref
@@ -1557,11 +1539,11 @@ def phase_lga3d(torch, gen, smi):
         res = {}
         for impl in ("kernel", "torch"):
             xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
-            reset_counts(S, G)
+            reset_launches()
             out = dispatch.lga3d_ncdhw(xr, gr, r, repeats, impl=impl)
             out.backward(gbar)
             want = {"lga3d_fwd": repeats, "lga_bwd": repeats} if impl == "kernel" else {}
-            expect_launches(torch, S, G, f"{tag} {impl}", want)
+            expect_launches(torch, f"{tag} {impl}", want)
             res[impl] = (out.detach(), xr.grad, gr.grad)
             del xr, gr, out
         compare(torch, f"{tag} out", res["kernel"][0], res["torch"][0])
@@ -1595,7 +1577,7 @@ def recorded_line(seen, launches) -> str:
     every launch that the wrappers counted."""
     from ganet_tpu_torch.utils.profiling import RECORDED
 
-    for name, _, _ in RECORDED:
+    for name in RECORDED:
         if sum(n for k, n in seen.items() if k[0] == name) != launches[name]:
             raise AssertionError(f"{name}: recorded {dict(seen)}, counted {launches[name]}")
     return "; ".join(f"{k[0]} {k[1]} {str(k[2])[6:]}{f' r{k[3]}' if len(k) > 3 else ''} x{n}"
@@ -1605,10 +1587,13 @@ def recorded_line(seen, launches) -> str:
 def hold_at_path_shapes(torch, gen, shapes, tag) -> None:
     """K1 and K3 (each direction, storing and accumulating), K2 and K4
     against their plain versions, float32 and bfloat16, at each volume
-    shape in `shapes` (from `recording_shapes`)."""
+    shape in `shapes` (from `recording_shapes`); K5 (both directions,
+    seeded and not) on each column window of the sharded wavefront's
+    chunks (`chunk_layout`) of each block it swept."""
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
+    from ganet_tpu_torch.parallel.sharded_sga import chunk_layout
 
     for key in sorted({k[:2] + k[3:] for k in shapes}, key=str):  # dtype aside: both are held
         kind, shape = key[:2]
@@ -1617,12 +1602,18 @@ def hold_at_path_shapes(torch, gen, shapes, tag) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             name = f"{tag} {kind} {shape} {str(dtype)[6:]}"
             x, p = x32.to(dtype), p32.to(dtype)
-            if kind in ("sga_fwd", "sga_bwd"):
-                N, _, H, W = shape
+            if kind in ("sga_fwd", "sga_bwd", "sga_fwd_seeded"):
+                N, D, H, W = shape
                 w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen),
                                  dim=2).to(dtype)
                 if kind == "sga_fwd":
                     hold_k1(torch, S, x, w, p, name)
+                elif kind == "sga_fwd_seeded":
+                    cols, starts = chunk_layout(W)
+                    seed = p[:, :, 0, :cols].contiguous()  # (N, D, cols)
+                    for col0 in starts:
+                        hold_k5(torch, S, x, w, seed, col0, cols, f"{name} [{col0}:{col0 + cols}]")
+                    del seed
                 else:
                     gbar = torch.randn(shape, device="cuda", generator=gen).to(dtype)
                     hold_k3(torch, S, x, w, gbar, p, name)
@@ -1680,6 +1671,39 @@ def hold_pngs(written, ds, model, frame) -> None:
             raise AssertionError(f"{path} is not entry.predict's disparity")
 
 
+def write_kitti(root: str, names, frame, rng) -> tuple:
+    """KITTI-2015-shaped frames `names` of `frame` (H, W) under `root`
+    (image_2, image_3, disp_occ_0) and their list beside it; returns (the
+    list's path, the RGB PNG writes' times in s)."""
+    import os
+
+    import numpy as np
+
+    from ganet_tpu_torch.data import png
+
+    H0, W0 = frame
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, sub))
+    write_s = []
+    for name in names:
+        # A textured left view, the right view shifted by 12 px, and
+        # ground truth on 40 % of the pixels (KITTI's is sparse).
+        base = rng.integers(0, 256, (H0 // 8 + 2, W0 // 8 + 2, 3)).astype(np.float32)
+        left = np.kron(base, np.ones((8, 8, 1)))[:H0, :W0] + rng.normal(0, 6, (H0, W0, 3))
+        left = np.clip(left, 0, 255).astype(np.uint8)
+        right = np.roll(left, -12, axis=1)
+        gt = np.full((H0, W0), 12.0, np.float32) * (rng.random((H0, W0)) < 0.4)
+        for sub, img in (("image_2", left), ("image_3", right)):
+            t0 = time.perf_counter()
+            png.write_png(os.path.join(root, sub, name), img)
+            write_s.append(time.perf_counter() - t0)
+        png.write_disparity_png(os.path.join(root, "disp_occ_0", name), gt)
+    lst = root + ".list"
+    with open(lst, "w") as f:
+        f.write("\n".join(names))
+    return lst, write_s
+
+
 def phase_from_files(torch, gen, smi) -> None:
     """The from-files path on the card: a PNG frame and a checkpoint written
     here from seeds, then the predict CLI, the evaluate CLI (offline and
@@ -1697,35 +1721,15 @@ def phase_from_files(torch, gen, smi) -> None:
     from ganet_tpu_torch.data import png
     from ganet_tpu_torch.data.dataset import StereoDataset
     from ganet_tpu_torch.entry import build_model, predict
-    from ganet_tpu_torch.ops import lga as G
-    from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.train.checkpoint import load_inference_state, save_checkpoint
-    from ganet_tpu_torch.utils.profiling import recording_shapes
+    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
     (H0, W0), (CH, CW), D = KITTI_FRAME, KITTI_CROP, 192
     rng = np.random.default_rng(14)
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "kitti")
         names = [f"{i:06d}_10.png" for i in range(FROM_FILES_FRAMES)]
-        for sub in ("image_2", "image_3", "disp_occ_0"):
-            os.makedirs(os.path.join(root, sub))
-        write_s = []
-        for name in names:
-            # A textured left view, the right view shifted by 12 px, and
-            # ground truth on 40 % of the pixels (KITTI's is sparse).
-            base = rng.integers(0, 256, (H0 // 8 + 2, W0 // 8 + 2, 3)).astype(np.float32)
-            left = np.kron(base, np.ones((8, 8, 1)))[:H0, :W0] + rng.normal(0, 6, (H0, W0, 3))
-            left = np.clip(left, 0, 255).astype(np.uint8)
-            right = np.roll(left, -12, axis=1)
-            gt = np.full((H0, W0), 12.0, np.float32) * (rng.random((H0, W0)) < 0.4)
-            for sub, img in (("image_2", left), ("image_3", right)):
-                t0 = time.perf_counter()
-                png.write_png(os.path.join(root, sub, name), img)
-                write_s.append(time.perf_counter() - t0)
-            png.write_disparity_png(os.path.join(root, "disp_occ_0", name), gt)
-        lst = os.path.join(tmp, "kitti.list")
-        with open(lst, "w") as f:
-            f.write("\n".join(names))
+        lst, write_s = write_kitti(root, names, (H0, W0), rng)
         read_s = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1747,12 +1751,12 @@ def phase_from_files(torch, gen, smi) -> None:
         shapes = Counter()
         torch.cuda.synchronize()
         with recording_shapes(shapes):
-            reset_counts(S, G)
+            reset_launches()
             t0 = time.perf_counter()
             written = predict_cli.main(data + crop + ["--save_path", out])
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
-            launches = read_counts(S, G)
+            launches = read_launches()
         n = len(names)
         want = {k: 0 for k in launches}
         want.update(sga_fwd=28 * n, lga_fwd=4 * n)
@@ -1786,9 +1790,9 @@ def phase_from_files(torch, gen, smi) -> None:
         log(f"[14] evaluate offline over the PNGs: {json.dumps(offline)}")
         seen = Counter()
         with recording_shapes(seen):
-            reset_counts(S, G)
+            reset_launches()
             online = evaluate.main(data + crop)
-            launches = read_counts(S, G)
+            launches = read_launches()
         shapes.update(seen)
         log(f"[14] evaluate online over the list: {json.dumps(online)}; launches at "
             f"{recorded_line(seen, launches)}")
@@ -1803,9 +1807,9 @@ def phase_from_files(torch, gen, smi) -> None:
         buf = io.StringIO()
         seen = Counter()
         with recording_shapes(seen), contextlib.redirect_stdout(buf):
-            reset_counts(S, G)
+            reset_launches()
             bench.main(["--batch", str(batch), "--iters", str(BENCH_ITERS)])
-            launches = read_counts(S, G)
+            launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         shapes.update(seen)
         k1, k2 = launches["sga_fwd"], launches["lga_fwd"]
@@ -1895,11 +1899,9 @@ def phase_train_from_files(torch, gen, smi) -> None:
     from ganet_tpu_torch import train as train_cli
     from ganet_tpu_torch.data.dataset import StereoDataset
     from ganet_tpu_torch.entry import build_model
-    from ganet_tpu_torch.ops import lga as G
-    from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.train import Trainer
     from ganet_tpu_torch.train.checkpoint import load_inference_state
-    from ganet_tpu_torch.utils.profiling import recording_shapes
+    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
     (H0, W0), (CH, CW), D = SCENEFLOW_FRAME, TRAIN_CROP, 192
     rng = np.random.default_rng(15)
@@ -1910,12 +1912,12 @@ def phase_train_from_files(torch, gen, smi) -> None:
         seen = Counter()
         torch.cuda.synchronize()
         with recording_shapes(seen):
-            reset_counts(S, G)
+            reset_launches()
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            launches = read_counts(S, G)
+            launches = read_launches()
         full = {k: want.get(k, 0) for k in launches}
         if launches != full:
             raise AssertionError(f"{tag}: launched {launches}, expected {full}")
@@ -2091,11 +2093,9 @@ def phase_data_parallel(torch, gen, smi, device: str = "cuda") -> None:
     import numpy as np
 
     from ganet_tpu_torch import train as train_cli
-    from ganet_tpu_torch.ops import lga as G
-    from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.parallel.launch import launch
     from ganet_tpu_torch.parallel import dp_cases as K
-    from ganet_tpu_torch.utils.profiling import recording_shapes
+    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
     (CH, CW), D = TRAIN_CROP, DP_MAX_DISP
     cuda = device == "cuda"
@@ -2117,7 +2117,7 @@ def phase_data_parallel(torch, gen, smi, device: str = "cuda") -> None:
         want = STEP_LAUNCHES[case["remat"]]
         for rank, res in enumerate(results[case["name"]]):
             for launched in res["launches"]:
-                if launched != want:
+                if launched != {k: want.get(k, 0) for k in launched}:
                     raise AssertionError(f"[16] {case['name']} rank {rank}: launched {launched} a step, "
                                          f"expected {want}")
             shapes.update(res["shapes"])
@@ -2195,14 +2195,14 @@ def phase_data_parallel(torch, gen, smi, device: str = "cuda") -> None:
         seen = Counter()
         want = {k: FILE_STEPS * v + FORWARD_LAUNCHES.get(k, 0) for k, v in STEP_LAUNCHES["sga"].items()}
         with recording_shapes(seen):
-            reset_counts(S, G)
+            reset_launches()
             t0 = time.perf_counter()
             trainer = train_cli.main(common + ["--mesh_data", str(DP_RANKS), "--nEpochs", "1",
                                                "--steps", str(FILE_STEPS), "--eval", "1"])
             if cuda:
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            launches = read_counts(S, G)
+            launches = read_launches()
         shapes.update(seen)
         full = {k: want.get(k, 0) for k in launches}
         rows, val = train_rows(save, "epoch0"), train_rows(save, "val")
@@ -2241,6 +2241,201 @@ def phase_data_parallel(torch, gen, smi, device: str = "cuda") -> None:
         log(f"[16] K1-K4 against their plain versions at the {len(shapes)} volume shapes the "
             "ranks launched")
         hold_at_path_shapes(torch, gen, shapes, "[16]")
+
+
+# Phase 17: the H-sharded eval forward of GANet_deep on SP_RANKS ranks that
+# share the card, and the predict CLI on meshes.
+SP_RANKS = 4
+SP_FRAME = (576, 960)
+SP_MAX_DISP = 192
+SP_F32_TOL = 2e-2  # px at the worst pixel: the model-level gate of phase 4 (PERF.md §2)
+SP_BF16_FACTOR = 1.5  # the rule of tests/test_torch_bf16.py
+SP_TIMED = 3
+SP_CLI_FRAME, SP_CLI_CROP, SP_CLI_FRAMES = (375, 1242), (384, 1248), 2
+# The CLI's PNGs on a mesh against the one-device CLI's: (a)'s float32 gate
+# plus the writer's truncation to 1/256 px.  The two forwards differ by
+# float32 noise (cuDNN picks its algorithms by shape, and a rank's blocks
+# have other shapes than the whole), which random weights amplify to
+# about 7e-3 px at the worst pixel (a frame's PNG read 2/256 against 1/256).
+SP_PNG_TOL = SP_F32_TOL + 1.0 / 256
+# ... and a frame's pixels more than 1/256 px apart may be at most this
+# share of it (0-2 of 465,750 read on the card), so that a fault in a few
+# rows of the CLI's join still fails.
+SP_PNG_PAST_SHARE = 1e-4
+
+
+def sharded_forward_launches(cfg, W: int) -> dict:
+    """K1, K5 and K2 launches of one rank's sharded eval forward at image
+    width W: 2 K1 (the W sweeps) a SGA block, 2 waves of K5 a block over
+    each chunk of its width (`chunk_layout`), and lga_repeats K2 for each
+    of the head's 2 LGA calls."""
+    from ganet_tpu_torch.parallel.sharded_sga import chunk_layout
+
+    chunks = lambda w: len(chunk_layout(w)[1])  # noqa: E731
+    return {"sga_fwd": 2 * (cfg.num_sga_full + cfg.num_sga_half),
+            "sga_fwd_seeded": 2 * (cfg.num_sga_full * chunks(W // 3) + cfg.num_sga_half * chunks(W // 6)),
+            "lga_fwd": 2 * cfg.lga_repeats}
+
+
+def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
+    """H-sharded inference: GANet_deep at SP_FRAME on SP_RANKS ranks over
+    `space` against one device in this process, float32 and bfloat16, the
+    ranks' launches, times and peak memory; the predict CLI with --space 2
+    and --space 2 --data 2 against the one-device CLI; then K1, K5 and K2
+    held at every shape the ranks launched them at.  `device` "cpu"
+    rehearses the phase's control flow on the plain versions (no times, no
+    kernels to hold)."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from ganet_tpu_torch import ganet_deep
+    from ganet_tpu_torch import predict as predict_cli
+    from ganet_tpu_torch.data import png
+    from ganet_tpu_torch.entry import build_model, predict
+    from ganet_tpu_torch.parallel import spatial_cases as K
+    from ganet_tpu_torch.parallel.launch import launch
+    from ganet_tpu_torch.train.checkpoint import save_checkpoint
+    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
+
+    cuda = device == "cuda"
+    (H, W), D = SP_FRAME, SP_MAX_DISP
+    model = dict(kind="model", model="GANet_deep", mesh=(1, SP_RANKS), batch=1, size=(H, W),
+                 max_disp=D, seed=17)
+    cases = [dict(model, name="f32", dtype="float32"),
+             dict(model, name="bf16", dtype="bfloat16", reps=SP_TIMED)]
+    shapes = Counter()
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        launch(K.run_cases, SP_RANKS, (cases, out_dir, device), backend="gloo", device=device)
+        log(f"[17] {SP_RANKS} ranks on one card (gloo): GANet_deep {H}x{W} D={D} batch 1 over space "
+            f"{SP_RANKS}, f32 and bf16 forwards, in {time.perf_counter() - t0:.1f} s")
+        results = {c["name"]: K.load(c, out_dir, SP_RANKS) for c in cases}
+
+    # (c) launches of each rank's forward.
+    want = sharded_forward_launches(ganet_deep(max_disp=D), W)
+    for case in cases:
+        ranks = results[case["name"]]
+        for rank, res in enumerate(ranks):
+            full = {k: want.get(k, 0) for k in res["launches"]}
+            if cuda and res["launches"] != full:  # the plain versions count nothing
+                raise AssertionError(f"[17] {case['name']} rank {rank}: launched {res['launches']}, "
+                                     f"expected {full}")
+            shapes.update(res["shapes"])
+        if not all(torch.equal(r["out"], ranks[0]["out"]) for r in ranks):
+            raise AssertionError(f"[17] {case['name']}: the ranks returned other disparities")
+        log(f"  [17] (c) {case['name']}: launches of each rank's forward {want} (K3, K4, K6, K7 none); "
+            f"every rank holds the same whole disparity ok")
+    for e in entries:
+        if e["name"] in want:
+            log(f"  [17] {e['name']}: {want[e['name']]} launches a rank, "
+                f"{SP_RANKS * want[e['name']]} over the {SP_RANKS} ranks")
+        if e["name"] == "sga_fwd_seeded":  # the model path's launches, as phase 12 sums them
+            e["launches"] = SP_RANKS * want["sga_fwd_seeded"]
+
+    # (a), (b) against one device in this process, the same weights (seeded init 0).
+    left, right = K.model_inputs(cases[0])
+    ref = {}
+    for dt in ("float32", "bfloat16"):
+        one = build_model(ganet_deep(max_disp=D, compute_dtype=dt), device, seed=0)
+        ref[dt] = predict(one, left, right).float().cpu()
+        if cuda and dt == "bfloat16":
+            times = []
+            for _ in range(SP_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                predict(one, left, right)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            log(f"[17] one device, this process, GANet_deep {H}x{W} D={D} bf16 batch 1: "
+                f"{min(times):.1f} ms (min of {SP_TIMED}; all {', '.join(f'{t:.1f}' for t in times)})")
+        del one
+    f32, bf16 = results["f32"][0]["out"], results["bf16"][0]["out"].float()
+    diff = (f32 - ref["float32"]).abs()
+    ok = bool(torch.isfinite(f32).all()) and tuple(f32.shape) == (1, H, W) and diff.max().item() <= SP_F32_TOL
+    log(f"[17] (a) f32 (TF32 off): max |sharded - one device| {diff.max().item():.3e} px (tol "
+        f"{SP_F32_TOL:.0e}), mean {diff.mean().item():.3e} px, {int((diff > 0).sum())} of {diff.numel()} "
+        f"pixels differ; range [{f32.min().item():.2f}, {f32.max().item():.2f}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[17] the sharded f32 forward disagrees with one device")
+    err_sh = (bf16 - ref["float32"]).abs().mean().item()
+    err_one = (ref["bfloat16"] - ref["float32"]).abs().mean().item()
+    ok = bool(torch.isfinite(bf16).all()) and err_sh <= SP_BF16_FACTOR * err_one
+    log(f"[17] (b) bf16: mean |sharded bf16 - one-device f32| {err_sh:.4f} px, mean |one-device bf16 - "
+        f"one-device f32| {err_one:.4f} px, factor {err_sh / max(err_one, 1e-30):.3f} (tol "
+        f"{SP_BF16_FACTOR}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[17] the sharded bf16 forward is further from f32 than one device's")
+    del ref, f32, bf16, diff
+
+    # (d) each rank's bf16 forward time and peak memory.
+    if cuda:
+        for rank, res in enumerate(results["bf16"]):
+            log(f"[17] (d) rank {rank}, GANet_deep {H}x{W} D={D} bf16 batch 1 over space {SP_RANKS}: "
+                f"forward {min(res['times']):.1f} ms (host clock after a barrier to a synchronize, min "
+                f"of {len(res['times'])}; all {', '.join(f'{t:.1f}' for t in res['times'])}); peak "
+                f"memory {res['peak_gib']:.2f} GiB; {SP_RANKS} ranks time-slicing one card over gloo: "
+                f"not a multi-GPU time; card {smi}")
+        log(f"[17] (d) ranks' peak memory {[round(r['peak_gib'], 2) for r in results['f32']]} GiB in f32")
+    del results
+
+    # (e) the predict CLI on meshes against the one-device CLI, float32.
+    (H0, W0), (CH, CW), n = SP_CLI_FRAME, SP_CLI_CROP, SP_CLI_FRAMES
+    rng = np.random.default_rng(17)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        lst, _ = write_kitti(root, [f"{i:06d}_10.png" for i in range(n)], (H0, W0), rng)
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, 0, build_model(ganet_deep(max_disp=D), device="cpu", seed=0))
+        common = ["--kitti2015", "1", "--data_path", root, "--test_list", lst, "--crop_height",
+                  str(CH), "--crop_width", str(CW), "--max_disp", str(D), "--model", "GANet_deep",
+                  "--resume", ckpt] + ([] if cuda else ["--device", "cpu"])
+        # (flags, rank 0's launches: a frame's forward times the batches)
+        frame = sharded_forward_launches(ganet_deep(max_disp=D), CW)
+        runs = {"one device": ([], {"sga_fwd": 28 * n, "lga_fwd": 4 * n}),
+                "--space 2": (["--space", "2"], {k: v * n for k, v in frame.items()}),
+                "--space 2 --data 2 --batch 2": (["--space", "2", "--data", "2", "--batch", "2"],
+                                                 {k: v * -(-n // 2) for k, v in frame.items()})}
+        pngs = {}
+        for label, (flags, expected) in runs.items():
+            out = os.path.join(tmp, f"out{len(pngs)}")
+            seen = Counter()
+            with recording_shapes(seen):
+                reset_launches()
+                t0 = time.perf_counter()
+                written = predict_cli.main(common + flags + ["--save_path", out])
+                secs = time.perf_counter() - t0
+                launches = read_launches()
+            shapes.update(seen)
+            pngs[label] = {os.path.basename(p): png.read_disparity_png(p) for p in written}
+            log(f"[17] (e) predict CLI {label} (f32, {n} frames of {H0}x{W0} at crop {CH}x{CW}): "
+                f"{secs:.2f} s with the ranks' start; rank 0 launched {launches}")
+            full = {k: expected.get(k, 0) for k in launches}
+            if cuda and launches != full:
+                raise AssertionError(f"[17] (e) {label}: rank 0 launched {launches}, expected {full}")
+            if sorted(pngs[label]) != sorted(pngs["one device"]):
+                raise AssertionError(f"[17] (e) {label} wrote {sorted(pngs[label])}")
+            for name, img in pngs[label].items() if flags else ():
+                ref_img = pngs["one device"][name]
+                d = np.abs(img - ref_img) if img.shape == ref_img.shape == (H0, W0) else np.array([np.inf])
+                past = int((d > 1.0 / 256).sum())
+                ok = float(d.max()) <= SP_PNG_TOL and past <= SP_PNG_PAST_SHARE * d.size
+                log(f"  [17] (e) {label} {name}: max |png - one-device png| {float(d.max()):.5f} px (tol "
+                    f"{SP_PNG_TOL:.5f}: (a)'s gate plus 1/256); {int((d > 0).sum())} pixels differ, "
+                    f"{past} by more than 1/256 (tol {SP_PNG_PAST_SHARE * d.size:.1f}, "
+                    f"{SP_PNG_PAST_SHARE:.2%} of the frame) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"[17] (e) {label}: {name} is not the one-device CLI's")
+
+    # (f) K1, K5 and K2 at every shape the ranks and the CLIs launched them at.
+    if cuda:
+        torch.cuda.empty_cache()
+        log(f"[17] (f) K1, K5 and K2 against their plain versions at the {len(shapes)} shapes launched")
+        hold_at_path_shapes(torch, gen, shapes, "[17]")
 
 
 def main() -> int:
@@ -2318,6 +2513,10 @@ def main() -> int:
         log(f"[16] data-parallel training on {DP_RANKS} ranks sharing the card "
             f"({time.perf_counter() - t0:.1f} s)")
         phase_data_parallel(torch, gen, smi)
+    if want(17):
+        log(f"[17] H-sharded inference on {SP_RANKS} ranks sharing the card, and the predict CLI "
+            f"on meshes ({time.perf_counter() - t0:.1f} s)")
+        phase_spatial(torch, gen, smi, entries)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

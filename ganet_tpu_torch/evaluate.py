@@ -14,7 +14,12 @@ protocol does; pixel weights each image by its valid pixels.  The online
 path runs on the CUDA device unless --device names another, and warns
 loudly when it falls back to fresh random weights (no --resume and no
 checkpoint under ./checkpoint/); a --resume without a checkpoint raises.
---bf16 1 and --sga_impl are predict's flags, for the online path.
+--bf16 1 and --sga_impl are predict's flags, for the online path, and so
+are --space and --data: the online path then runs on a (data, space) mesh
+of ranks on this host, this process rank 0 (`predict.serve`), over
+batches of max(1, --data) frames (the last padded by repeating its last
+frame, whose metrics are not counted), as the JAX CLI does; rank 0 counts
+and prints the metrics.
 """
 
 from __future__ import annotations
@@ -24,13 +29,21 @@ import os
 
 import numpy as np
 
-from ganet_tpu_torch.config import IMPLS, DataConfig, model_config
+from ganet_tpu_torch.config import IMPLS, DataConfig
 from ganet_tpu_torch.data.dataset import get_test_set
 from ganet_tpu_torch.data.lists import derive_paths, read_list
 from ganet_tpu_torch.data.pfm import read_pfm
 from ganet_tpu_torch.data.png import read_disparity_png
 from ganet_tpu_torch.entry import build_model, predict, resolve_device
-from ganet_tpu_torch.predict import check_mesh, dataset_kind, load_weights, output_names
+from ganet_tpu_torch.parallel.mesh import inference_mesh
+from ganet_tpu_torch.predict import (
+    check_flags,
+    config,
+    dataset_kind,
+    load_weights,
+    output_names,
+    serve,
+)
 
 
 def parse_args(argv=None):
@@ -52,8 +65,10 @@ def parse_args(argv=None):
     p.add_argument("--weighting", choices=["image", "pixel"], default="image",
                    help="'image' = mean of per-image metrics (the KITTI protocol); "
                         "'pixel' = valid-pixel-weighted")
-    p.add_argument("--space", type=int, default=1, help="mesh: spatial shards (not ported)")
-    p.add_argument("--data", type=int, default=1, help="mesh: data-parallel shards (not ported)")
+    p.add_argument("--space", type=int, default=1,
+                   help="mesh: spatial (image-height) shards, ranks on this host")
+    p.add_argument("--data", type=int, default=1,
+                   help="mesh: data-parallel (batch) shards, ranks on this host")
     p.add_argument("--sga_impl", type=str, default="auto", choices=IMPLS)
     p.add_argument("--bf16", type=int, default=0)
     p.add_argument("--device", type=str, default=None,
@@ -76,10 +91,40 @@ def _metrics_np(pred, gt, max_disp):
     }
 
 
+def online(rank: int, world: int, args) -> list:
+    """The online path on one rank of the mesh (the only one for one
+    device): the metrics of each frame of the list, in order."""
+    device = resolve_device(args.device)
+    cfg = config(args)
+    data = DataConfig(
+        data_path=args.data_path,
+        val_list=args.test_list,
+        crop_height=args.crop_height,
+        crop_width=args.crop_width,
+        kind=dataset_kind(args),
+    )
+    mesh = inference_mesh(args.data, args.space)
+    state = load_weights(cfg, args.resume, "evaluating", quiet=rank > 0)
+    model = build_model(cfg, device, state_dict=state, mesh=mesh)
+    ds = get_test_set(data, args.max_disp)
+    n = len(ds) if not args.max_samples else min(len(ds), args.max_samples)
+    B = max(1, args.data)
+    metrics = []
+    for start in range(0, n, B):
+        samples = [ds[i] for i in range(start, min(start + B, n))]
+        count = len(samples)
+        while len(samples) < B:
+            samples.append(samples[-1])
+        preds = predict(model, np.stack([s["left"] for s in samples]),
+                        np.stack([s["right"] for s in samples])).float().cpu().numpy()
+        for j in range(count):
+            metrics.append(_metrics_np(preds[j], samples[j]["disparity"], args.max_disp))
+    return metrics
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns the metrics."""
     args = parse_args(argv)
-    check_mesh(args)
     kind = dataset_kind(args)
 
     totals: dict = {}
@@ -112,27 +157,11 @@ def main(argv=None) -> dict:
             accumulate(_metrics_np(pred, gt, args.max_disp))
     else:
         # Online: run the model over the list.
-        device = resolve_device(args.device)
-        cfg = model_config(
-            args.model,
-            max_disp=args.max_disp,
-            compute_dtype="bfloat16" if args.bf16 else "float32",
-            impl=args.sga_impl,
-        )
-        data = DataConfig(
-            data_path=args.data_path,
-            val_list=args.test_list,
-            crop_height=args.crop_height,
-            crop_width=args.crop_width,
-            kind=kind,
-        )
-        model = build_model(cfg, device, state_dict=load_weights(cfg, args.resume, "evaluating"))
-        ds = get_test_set(data, args.max_disp)
-        n = len(ds) if not args.max_samples else min(len(ds), args.max_samples)
-        for i in range(n):
-            s = ds[i]
-            pred = predict(model, s["left"][None], s["right"][None]).float().cpu().numpy()
-            accumulate(_metrics_np(pred[0], s["disparity"], args.max_disp))
+        cfg = config(args)
+        cfg.validate_image_shape(args.crop_height, args.crop_width)
+        check_flags(args, cfg, args.crop_height)
+        for m in serve(online, args):
+            accumulate(m)
 
     denom = weight_sum if args.weighting == "pixel" else count
     result = {k: v / max(denom, 1) for k, v in totals.items()}

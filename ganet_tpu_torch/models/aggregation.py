@@ -20,6 +20,13 @@ CUDA device launches the SGA and LGA forward kernels a second time; under
 change, so checkpoints of every policy are interchangeable.  The recompute
 runs inside `layers.recomputing()`, so train-mode BatchNorm updates its
 running statistics once a step.
+
+Spatial sharding (eval only): after `layers.shard_space(module, group)`
+every 3D conv, SGA block and head runs on this rank's block of H rows of
+the volumes, its blocks in rank order along the mesh's `space` group:
+halo convolutions and upsample (`parallel/spatial.py`), the SGA wavefront
+and the halo LGA (`ops.dispatch`); the final map is the rank's block of
+rows.  Softmax, the expectation and the eval BatchNorm are local.
 """
 
 from __future__ import annotations
@@ -41,12 +48,15 @@ from ganet_tpu_torch.models.layers import (
     torch_dtype,
 )
 from ganet_tpu_torch.ops import dispatch
-from ganet_tpu_torch.ops.disparity import disparity_regression, trilinear_upsample
+from ganet_tpu_torch.ops.disparity import disparity_regression
 from ganet_tpu_torch.ops.normalize import at_least_f32, l1_normalize, normalize_weights
+from ganet_tpu_torch.parallel.spatial import halo_conv_same, halo_trilinear_upsample
 
 
 class SGABlock(nn.Module):
     """SGA + BatchNorm + ReLU + refining conv + residual ReLU."""
+
+    space_group = None
 
     def __init__(self, channels: int, cfg: ModelConfig):
         super().__init__()
@@ -67,7 +77,7 @@ class SGABlock(nn.Module):
         k = normalize_weights(g.view(B, 4, 5, C, H, W), self.cfg.sga_norm, dim=2)
         k = k.permute(0, 3, 1, 2, 4, 5).contiguous()  # (B, C, 4, 5, H, W)
         rem = x
-        x = dispatch.sga_ncdhw(x.contiguous(), k.to(x.dtype), self.cfg.impl)
+        x = dispatch.sga_ncdhw(x.contiguous(), k.to(x.dtype), self.cfg.impl, self.space_group)
         x = F.relu(batch_norm(x, self.bn))
         x = self.BasicConv_0(x)
         return F.relu(x + rem.to(x.dtype))
@@ -78,6 +88,8 @@ class DispHead(nn.Module):
     trilinear x3 upsample in the head dtype, softmax over the negated cost
     in float32, expectation."""
 
+    space_group = None
+
     def __init__(self, cfg: ModelConfig, channels: int):
         super().__init__()
         self.cfg = cfg
@@ -86,16 +98,20 @@ class DispHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, C, D/3, H/3, W/3) -> (B, H, W)."""
         cfg = self.cfg
-        x = F.conv3d(x, self.conv.weight.to(x.dtype), padding=1)[:, 0]
+        x = halo_conv_same(x, self.conv.weight, group=self.space_group)[:, 0]
         D = cfg.max_disp
         H, W = x.shape[2] * 3, x.shape[3] * 3
-        x = trilinear_upsample(x.to(torch_dtype(cfg.resolved_head_dtype)), (D, H, W))
+        x = halo_trilinear_upsample(
+            x.to(torch_dtype(cfg.resolved_head_dtype)), (D, H, W), self.space_group
+        )
         return disparity_regression(torch.softmax(-at_least_f32(x), dim=1), D)
 
 
 class DispAggHead(nn.Module):
     """Final head: LGA before the softmax and after it, then the
     renormalised expectation."""
+
+    space_group = None
 
     def __init__(self, cfg: ModelConfig, channels: int):
         super().__init__()
@@ -108,17 +124,18 @@ class DispAggHead(nn.Module):
         r = cfg.lga_radius
         hd = torch_dtype(cfg.resolved_head_dtype)
         # C -> 1 conv, then the trilinear x3 upsample in the head dtype.
-        x = F.conv3d(x, self.conv.weight.to(x.dtype), padding=1)[:, 0]
+        group = self.space_group
+        x = halo_conv_same(x, self.conv.weight, group=group)[:, 0]
         D = cfg.max_disp
         H, W = x.shape[2] * 3, x.shape[3] * 3
-        x = trilinear_upsample(x.to(hd), (D, H, W)).contiguous()
+        x = halo_trilinear_upsample(x.to(hd), (D, H, W), group).contiguous()
         # Guidance is normalised in float32, then stored in the head dtype.
         lg1 = l1_normalize(at_least_f32(lg1), dim=1).to(hd).contiguous()
         lg2 = l1_normalize(at_least_f32(lg2), dim=1).to(hd).contiguous()
-        x = dispatch.lga_nchw(x, lg1, r, cfg.lga_repeats, cfg.impl)
+        x = dispatch.lga_nchw(x, lg1, r, cfg.lga_repeats, cfg.impl, group)
         # Softmax in float32; the probabilities are stored in the head dtype.
         p = torch.softmax(-at_least_f32(x), dim=1).to(hd).contiguous()
-        p = dispatch.lga_nchw(p, lg2, r, cfg.lga_repeats, cfg.impl)
+        p = dispatch.lga_nchw(p, lg2, r, cfg.lga_repeats, cfg.impl, group)
         # Renormalisation fused with the expectation, in float32.
         pf = at_least_f32(p)
         d = torch.arange(cfg.max_disp, dtype=pf.dtype, device=pf.device)

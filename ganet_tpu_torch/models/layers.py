@@ -15,6 +15,10 @@ weights times s in float32, then + t in the input's dtype, as its
 `FoldableBN`), elsewhere taken in float32 and rounded once, as flax's
 `BatchNorm`.
 
+With a `space` group (`shard_space`, the sharded model of inference), a
+BasicConv takes this rank's block of rows and exchanges the rows its
+padding needs with its neighbours (`parallel/spatial.py`).
+
 Submodules are named `conv` and `bn`; containers keep the JAX package's
 child names (`BasicConv_0`, `Conv2x_1`, ...) so that the weight bridge maps
 parameter paths one to one.
@@ -25,7 +29,6 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Sequence
 
 import torch
 import torch.nn as nn
@@ -33,24 +36,13 @@ import torch.nn.functional as F
 
 from ganet_tpu_torch.ops.normalize import at_least_f32
 from ganet_tpu_torch.parallel.comm import all_reduce_sum
+from ganet_tpu_torch.parallel.spatial import halo_conv_same, halo_conv_transpose
 
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config dtype name ("float32" or "bfloat16";
     "float64" measures the float32 noise of the others)."""
     return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}[name]
-
-
-def same_padding(
-    sizes: Sequence[int], kernel: int, stride: int
-) -> list[tuple[int, int]]:
-    """(low, high) padding of each spatial dim under XLA's "SAME" rule."""
-    pads = []
-    for n in sizes:
-        out = -(-n // stride)
-        total = max((out - 1) * stride + kernel - n, 0)
-        pads.append((total // 2, total - total // 2))
-    return pads
 
 
 def bn_affine(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
@@ -143,26 +135,33 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
 
 
 def conv_same(
-    x: torch.Tensor, conv: nn.Module, stride: int = 1, scale: torch.Tensor | None = None
+    x: torch.Tensor, conv: nn.Module, stride: int = 1, scale: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
     """`conv`'s weights applied with "SAME" padding in the input's dtype;
-    with `scale`, each output channel's weights times it first, in float32."""
-    k = conv.weight.shape[-1]
-    pads = same_padding(x.shape[2:], k, stride)
-    weight = conv.weight
-    if scale is not None:
-        weight = weight * scale.view((-1,) + (1,) * (weight.dim() - 1))
-    weight = weight.to(x.dtype)
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    fn = F.conv3d if x.dim() == 5 else F.conv2d
-    if all(lo == hi for lo, hi in pads):
-        return fn(x, weight, bias, stride=stride, padding=[lo for lo, _ in pads])
-    flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last dim first
-    return fn(F.pad(x, flat), weight, bias, stride=stride)
+    with `scale`, each output channel's weights times it first, in float32.
+    With a `space` group, x is this rank's block of rows and the H padding
+    comes from its neighbours (`parallel.spatial.halo_conv_same`)."""
+    return halo_conv_same(x, conv.weight, conv.bias, stride, scale, group)
+
+
+def shard_space(module: nn.Module, group) -> None:
+    """Every layer in `module` that takes a `space` group (BasicConv and
+    the aggregation's SGA blocks and heads) runs on this rank's block of
+    rows of the volumes, exchanging halo rows over `group` (the mesh's
+    `space` axis); None: on the whole volume.  Like `sync_batch_norm`, the
+    group is kept on each module: the state_dict does not change."""
+    for m in module.modules():
+        if hasattr(m, "space_group"):
+            m.space_group = group
 
 
 class BasicConv(nn.Module):
-    """Conv or stride-2 deconv (2D or 3D) + optional BatchNorm + optional ReLU."""
+    """Conv or stride-2 deconv (2D or 3D) + optional BatchNorm + optional
+    ReLU; on this rank's block of rows when it has a `space_group`
+    (`shard_space`)."""
+
+    space_group = None
 
     def __init__(
         self,
@@ -191,20 +190,19 @@ class BasicConv(nn.Module):
         self.bn = bn_cls(features, eps=1e-5, momentum=0.1) if use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.space_group
         if self.deconv:
-            bias = None if self.conv.bias is None else self.conv.bias.to(x.dtype)
-            fn = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d
-            x = fn(x, self.conv.weight.to(x.dtype), bias, stride=2, padding=1)
+            x = halo_conv_transpose(x, self.conv.weight, self.conv.bias, group)
         elif x.dim() == 5 and self.bn is not None and not self.bn.training:
             # An eval BatchNorm after a 3D conv is folded into the conv, as
             # the JAX package's FoldableBN does: weights times s in float32,
             # then + t in the input's dtype.
             s, t = bn_affine(self.bn)
-            x = conv_same(x, self.conv, self.stride, scale=s)
+            x = conv_same(x, self.conv, self.stride, scale=s, group=group)
             x = x + t.to(x.dtype).view(1, -1, 1, 1, 1)
             return F.relu(x) if self.relu else x
         else:
-            x = conv_same(x, self.conv, self.stride)
+            x = conv_same(x, self.conv, self.stride, group=group)
         if self.bn is not None:
             x = batch_norm(x, self.bn)
         if self.relu:

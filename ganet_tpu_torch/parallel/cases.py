@@ -35,19 +35,10 @@ import torch
 import torch.distributed as dist
 
 from ganet_tpu_torch.config import MeshConfig
-from ganet_tpu_torch.ops import lga as _lga
-from ganet_tpu_torch.ops import sga as _sga
 from ganet_tpu_torch.parallel.mesh import make_mesh
 from ganet_tpu_torch.parallel.sharded_lga import sharded_lga
 from ganet_tpu_torch.parallel.sharded_sga import sharded_sga
-
-_COUNTED = {
-    "sga_fwd": _sga.sga_sweep_kernel, "sga_bwd": _sga.sga_sweep_bwd_kernel,
-    "sga_fwd_seeded": _sga.sga_sweep_seeded_kernel,
-    "sga_bwd_seeded": _sga.sga_sweep_bwd_seeded_kernel,
-    "lga_fwd": _lga.lga_kernel, "lga_bwd": _lga.lga_bwd_kernel,
-}
-
+from ganet_tpu_torch.utils.profiling import read_launches, reset_launches
 
 def make_inputs(case: dict) -> Dict[str, np.ndarray]:
     """The whole volume's inputs of a case, float32, from its seed: x, the
@@ -125,15 +116,14 @@ def run_cases(rank: int, nprocs: int, cases: Sequence[dict], out_dir: str, devic
                                    case.get("force_pipeline", False))
             return sharded_lga(x, other, 2, case.get("repeats", 1), group)
 
-        for fn in _COUNTED.values():
-            fn.launches = 0
+        reset_launches()
         with torch.set_grad_enabled(grad):
             out = run()
             if grad:
                 out.backward(local["gbar"])
         if device == "cuda":
             torch.cuda.synchronize()
-        result = {"out": out.detach().cpu(), "launches": {k: f.launches for k, f in _COUNTED.items()}}
+        result = {"out": out.detach().cpu(), "launches": read_launches()}
         if grad:
             result["dx"] = x.grad.cpu()
             result["dw" if case["op"] == "sga" else "dg"] = other.grad.cpu()

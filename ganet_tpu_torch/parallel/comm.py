@@ -4,7 +4,10 @@ that stand for the all-reduces XLA inserts into a data-parallel step.
 
 A shard sends rows to its neighbours along the `space` axis.  All
 transfers of one step go in one `dist.batch_isend_irecv` call, which
-returns when every one of them is done.  A data-parallel step sums
+returns when every one of them is done.  `halo_exchange` brings the rows
+above and below a block, for the sharded LGA and the halo convolutions
+and upsample (`parallel/spatial.py`); `all_gather_cat` joins the ranks'
+blocks of an output.  A data-parallel step sums
 BatchNorm moments, valid-pixel counts, metrics and gradients over the
 `data` axis with `all_reduce_` (in place) and `all_reduce_sum`
 (differentiable).
@@ -16,7 +19,8 @@ group; nothing here switches it.
     point-to-point transfers move CPU tensors only, so CUDA tensors are
     staged through host memory explicitly: a send copies to the host, a
     receive lands in a host buffer and is copied to the device.  Its
-    all_reduce takes CUDA tensors and stages them through the host itself.
+    all_reduce and all_gather take CUDA tensors and stage them through
+    the host themselves.
   * nccl moves device tensors directly.  `check_group` raises when two
     ranks of the group share a device.
 """
@@ -129,44 +133,91 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], group=None) -> None:
             g.copy_(part.view_as(g))
 
 
+def all_gather_cat(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's `x` (all of one shape), joined along `dim` in the rank
+    order of `group`; `x` itself for a group of one rank.  Not
+    differentiable."""
+    _, S = group_rank(group)
+    if S == 1:
+        return x
+    src = x.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(S)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim)
+
+
 def _halo_swap(lo: torch.Tensor, hi: torch.Tensor, group):
     """Send `lo` to the previous rank and `hi` to the next; returns what
     the previous rank sent as its `hi` and the next as its `lo` (zeros at
-    the group's edges)."""
+    the group's edges).  A side of no rows is not exchanged."""
     idx, S = group_rank(group)
     from_prev, from_next = torch.zeros_like(hi), torch.zeros_like(lo)
     sends, recvs = [], []
     if idx > 0:
-        sends.append((lo, idx - 1))
-        recvs.append((from_prev, idx - 1))
+        if lo.numel():
+            sends.append((lo, idx - 1))
+        if hi.numel():
+            recvs.append((from_prev, idx - 1))
     if idx < S - 1:
-        sends.append((hi, idx + 1))
-        recvs.append((from_next, idx + 1))
+        if hi.numel():
+            sends.append((hi, idx + 1))
+        if lo.numel():
+            recvs.append((from_next, idx + 1))
     exchange(sends, recvs, group)
     return from_prev, from_next
 
 
+EDGES = ("zeros", "edge")
+
+
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, radius: int, group):
-        ctx.radius, ctx.group, ctx.shape = radius, group, x.shape
-        return _halo_swap(x[:, :, :radius].contiguous(), x[:, :, -radius:].contiguous(), group)
+    def forward(ctx, x: torch.Tensor, above: int, below: int, dim: int, edge: str, group):
+        ctx.above, ctx.below, ctx.dim, ctx.edge, ctx.group = above, below, dim, edge, group
+        ctx.shape = x.shape
+        n = x.shape[dim]
+        top, bottom = _halo_swap(
+            x.narrow(dim, 0, below).contiguous(), x.narrow(dim, n - above, above).contiguous(), group
+        )
+        if edge == "edge":
+            # The image's edge row repeated, where the unsharded op clamps.
+            idx, S = group_rank(group)
+            if idx == 0:
+                top = x.narrow(dim, 0, 1).expand_as(top).contiguous()
+            if idx == S - 1:
+                bottom = x.narrow(dim, n - 1, 1).expand_as(bottom).contiguous()
+        return top, bottom
 
     @staticmethod
     def backward(ctx, g_top: torch.Tensor, g_bottom: torch.Tensor):
         # The top halo came from the previous rank's last rows: its
         # cotangent goes back there, and the same on the other side.
-        r = ctx.radius
+        a, b, dim = ctx.above, ctx.below, ctx.dim
+        n = ctx.shape[dim]
         d_first, d_last = _halo_swap(g_top.contiguous(), g_bottom.contiguous(), ctx.group)
         dx = g_top.new_zeros(ctx.shape)
-        dx[:, :, :r] += d_first
-        dx[:, :, -r:] += d_last
-        return dx, None, None
+        dx.narrow(dim, 0, b).add_(d_first)
+        dx.narrow(dim, n - a, a).add_(d_last)
+        if ctx.edge == "edge":
+            idx, S = group_rank(ctx.group)
+            if idx == 0 and a:
+                dx.narrow(dim, 0, 1).add_(g_top.sum(dim, keepdim=True))
+            if idx == S - 1 and b:
+                dx.narrow(dim, n - 1, 1).add_(g_bottom.sum(dim, keepdim=True))
+        return dx, None, None, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, radius: int, group=None):
-    """(top, bottom): the `radius` rows of dim 2 above and below this
-    rank's block, from its neighbours along `group`, zero at the edges (the
-    unsharded op's zero padding).  One exchange; differentiable, its
-    backward is the reverse exchange."""
-    return _HaloExchange.apply(x, radius, group)
+def halo_exchange(x: torch.Tensor, radius: int, group=None, *, below=None, dim: int = 2,
+                  edge: str = "zeros"):
+    """(top, bottom): the `radius` rows along `dim` above this rank's block
+    and the `below` rows (`radius` when None) under it, from its neighbours
+    along `group`.  At the group's edges the halo is zeros (the unsharded
+    op's zero padding) or, with edge "edge", the block's edge row repeated
+    (an op that clamps its index there, as an upsample does).  One
+    exchange; differentiable, its backward is the reverse exchange."""
+    below = radius if below is None else below
+    if edge not in EDGES:
+        raise ValueError(f"edge must be one of {EDGES}, got {edge!r}")
+    if min(radius, below) < 0 or max(radius, below) > x.shape[dim]:
+        raise ValueError(f"halo ({radius}, {below}) rows of a {x.shape[dim]}-row block")
+    return _HaloExchange.apply(x, radius, below, dim, edge, group)

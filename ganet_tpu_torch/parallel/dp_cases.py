@@ -46,12 +46,10 @@ import torch.distributed as dist
 from ganet_tpu_torch.config import DataConfig, MeshConfig, OptimConfig, TrainConfig, model_config
 from ganet_tpu_torch.data import SyntheticStereoDataset, stack
 from ganet_tpu_torch.models.layers import bn_train, sync_batch_norm
-from ganet_tpu_torch.ops import lga as _lga
-from ganet_tpu_torch.ops import sga as _sga
 from ganet_tpu_torch.parallel.comm import all_reduce_grads
 from ganet_tpu_torch.train.state import model_digest
 from ganet_tpu_torch.train.trainer import create_train_state, make_train_step, train_mesh
-from ganet_tpu_torch.utils.profiling import RECORDED, recording_shapes
+from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
 
 def train_config(case: dict, data: int = 1) -> TrainConfig:
@@ -124,13 +122,6 @@ def _bn_run(case: dict, rank: int, n: int, device, group) -> Dict[str, object]:
             "state": {k: v.cpu() for k, v in bn.state_dict().items()}}
 
 
-def _wrappers():
-    """(count name, wrapper) of K1-K4, looked up now: `recording_shapes`
-    stands in for the wrappers while it records."""
-    return [(name, getattr(_lga if attr.startswith("lga") else _sga, attr))
-            for name, attr, _ in RECORDED]
-
-
 def _step_run(case: dict, rank: int, n: int, device, keep_init: bool = False) -> Dict[str, object]:
     cfg = train_config(case, n)
     cuda = torch.device(device).type == "cuda"
@@ -149,11 +140,10 @@ def _step_run(case: dict, rank: int, n: int, device, keep_init: bool = False) ->
     shapes: Counter = Counter()
     with recording_shapes(shapes):
         for b in all_batches:
-            for _, fn in _wrappers():
-                fn.launches = 0
+            reset_launches()
             m = step(state, {k: _rows(v, rank, n) for k, v in b.items()})
             losses.append(m["loss"].item())
-            launches.append({name: fn.launches for name, fn in _wrappers()})
+            launches.append(read_launches())
     result: Dict[str, object] = {
         "losses": losses,
         "metrics": {k: float(v) for k, v in m.items()},

@@ -15,7 +15,10 @@ children.  With device "cuda" each rank takes card
 (then only gloo can join them: NCCL refuses two ranks of one communicator
 on one device, `default_backend`), and the parent builds every CUDA
 kernel before it starts the ranks, so that they do not all run nvcc at
-once.  On the CPU the ranks share the caller's intra-op threads.
+once.  On the CPU the ranks share the caller's intra-op threads.  The
+children take the caller's float32 numerics (TF32 in cuDNN and in matrix
+products, cuDNN's deterministic algorithms), so that every rank computes
+as rank 0 does.
 
 A rank that raises fails the whole launch: the others are ended and
 `launch` raises.
@@ -57,10 +60,17 @@ def _run_rank(rank: int, fn: Callable, nprocs: int, init: str, backend: str, dev
         dist.destroy_process_group()
 
 
-def _child(i: int, first: int, threads: int, fn: Callable, nprocs: int, init: str, backend: str,
-           device: str, args):
+def _numerics() -> tuple:
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+
+
+def _child(i: int, first: int, threads: int, numerics: tuple, fn: Callable, nprocs: int, init: str,
+           backend: str, device: str, args):
     if device == "cpu":
         torch.set_num_threads(threads)
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = numerics
     _run_rank(first + i, fn, nprocs, init, backend, device, args)
 
 
@@ -89,7 +99,7 @@ def launch(
     try:
         init = "file://" + os.path.join(tmp, "store")
         ctx = mp.start_processes(
-            _child, args=(first, threads, fn, nprocs, init, backend, device, tuple(args)),
+            _child, args=(first, threads, _numerics(), fn, nprocs, init, backend, device, tuple(args)),
             nprocs=nprocs - first, join=False, start_method="spawn",
         )
         result = None

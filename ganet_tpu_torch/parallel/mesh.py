@@ -7,9 +7,11 @@ each device is one rank of `torch.distributed`, laid out row-major over
 each axis is a set of process groups: one group for every line of ranks
 along that axis.  The `data` axis carries data-parallel training (the
 train step sums BatchNorm moments, losses, metrics and gradients over
-`data_group`, `train/trainer.py`); the `space` axis the H-sharded SGA
-wavefront and halo LGA (`parallel/sharded_sga.py`,
-`parallel/sharded_lga.py`).
+`data_group`, `train/trainer.py`) and splits the batch of sharded
+inference (`entry.predict`); the `space` axis the H-sharded model of
+inference (`models/ganet.py`): its halo convolutions and upsample
+(`parallel/spatial.py`), SGA wavefront and halo LGA
+(`parallel/sharded_sga.py`, `parallel/sharded_lga.py`).
 
 The JAX module's `batch_sharding`, `volume_sharding` and `constrain_*`
 helpers are GSPMD sharding annotations, which have no counterpart in
@@ -20,7 +22,7 @@ what they need explicitly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch.distributed as dist
 
@@ -74,3 +76,12 @@ def make_mesh(cfg: MeshConfig) -> Mesh:
                 if rank in ranks:
                     groups[axis] = group
     return Mesh(cfg=cfg, index=index, groups=groups)
+
+
+def inference_mesh(data: int, space: int) -> Optional[Mesh]:
+    """The (data, space, 1) mesh of sharded inference over the initialised
+    world (the counterpart of the JAX `predict.py`'s `build_mesh`), or None
+    for one device.  A collective: every rank calls it."""
+    if data * space <= 1:
+        return None
+    return make_mesh(MeshConfig(data=data, space=space, disp=1))

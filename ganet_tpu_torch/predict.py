@@ -15,8 +15,17 @@ checkpoint it raises.  The last batch is padded by repeating its last
 sample, so every batch has one shape.
 
 It runs on the CUDA device unless --device names another; without a card
-and without --device cpu it raises.  Meshes (--space, --data above 1) are
-not ported yet.
+and without --device cpu it raises.
+
+--space S --data N serve on a (data, space) mesh of S * N ranks on this
+host (the JAX CLI's `build_mesh`): this process is rank 0 and starts the
+others (`parallel/launch.py`; gloo when the ranks share a card or run on
+the CPU, else NCCL).  Each `data` line takes --batch / N of each batch,
+and the S ranks of a line share its rows from the cost volume on
+(`models/ganet.py`); every rank gets the whole disparity and rank 0 writes
+the PNGs.  --batch must be divisible by --data, and the crop height must
+meet `parallel.spatial.check_spatial_shape`: both are checked before any
+rank starts.
 """
 
 from __future__ import annotations
@@ -33,6 +42,9 @@ from ganet_tpu_torch.data.dataset import StereoDataset
 from ganet_tpu_torch.data.png import write_disparity_png
 from ganet_tpu_torch.data.synthetic import SyntheticStereoDataset
 from ganet_tpu_torch.entry import build_model, predict, resolve_device
+from ganet_tpu_torch.parallel.launch import default_backend, launch
+from ganet_tpu_torch.parallel.mesh import inference_mesh
+from ganet_tpu_torch.parallel.spatial import check_spatial_shape
 from ganet_tpu_torch.train.checkpoint import fresh_init_state, load_inference_state
 
 DEFAULT_CHECKPOINT = "./checkpoint/"
@@ -68,20 +80,37 @@ def dataset_kind(args) -> str:
     return "sceneflow"
 
 
-def check_mesh(args) -> None:
-    """Raise for a mesh above one device: not ported yet."""
-    if args.space > 1 or args.data > 1:
-        raise NotImplementedError(
-            f"--space {args.space} --data {args.data}: the port runs on one device;"
-            " data-parallel runs (ROADMAP queue 1 #6) and spatial sharding of the model"
-            " (queue 1 #7) are not ported yet"
-        )
+def check_flags(args, cfg, height: int) -> None:
+    """Exit (SystemExit) for flags that no mesh of --data x --space ranks
+    can serve: a mesh axis below 1, a --batch that --data does not divide
+    (as the JAX CLI), a height that --space cannot share."""
+    if args.space < 1 or args.data < 1:
+        raise SystemExit(f"--space {args.space} --data {args.data}: each must be at least 1")
+    if args.data > 1 and getattr(args, "batch", args.data) % args.data:
+        raise SystemExit(f"--batch {args.batch} must be divisible by --data {args.data}")
+    try:
+        check_spatial_shape(cfg, height, args.space)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
-def load_weights(model_cfg, resume: str, what: str):
+def serve(run, args):
+    """`run(rank, world, args)` on the --data x --space ranks of the mesh,
+    this process rank 0 (what it returns there); in this process alone for
+    one device."""
+    n = args.data * args.space
+    if n == 1:
+        return run(0, 1, args)
+    device = "cpu" if args.device == "cpu" else "cuda"
+    return launch(run, n, (args,), backend=default_backend(device, n), device=device,
+                  caller_rank=True)
+
+
+def load_weights(model_cfg, resume: str, what: str, quiet: bool = False):
     """The state_dict of the checkpoint under `resume` (or ./checkpoint/);
     with no --resume and no checkpoint there, a fresh random init, with a
-    loud warning on stderr.  A --resume without a checkpoint raises."""
+    loud warning on stderr (unless `quiet`: the mesh's other ranks).  A
+    --resume without a checkpoint raises."""
     try:
         return load_inference_state(resume or DEFAULT_CHECKPOINT)
     except FileNotFoundError:
@@ -90,7 +119,8 @@ def load_weights(model_cfg, resume: str, what: str):
                 f"--resume {resume}: no checkpoint found; {what} needs a trained checkpoint"
                 " (or drop --resume to use fresh-init weights)"
             ) from None
-        print(
+        if not quiet:
+            print(
             f"WARNING: no checkpoint under {DEFAULT_CHECKPOINT} — {what} with FRESH-INIT"
             " (random) weights; the results are meaningless except as a smoke test",
             file=sys.stderr,
@@ -116,29 +146,47 @@ def parse_args(argv=None):
     p.add_argument("--sga_impl", type=str, default="auto", choices=IMPLS)
     p.add_argument("--bf16", type=int, default=0)
     p.add_argument("--batch", type=int, default=1, help="inference batch size")
-    p.add_argument("--space", type=int, default=1, help="mesh: spatial shards (not ported)")
-    p.add_argument("--data", type=int, default=1, help="mesh: data-parallel shards (not ported)")
+    p.add_argument("--space", type=int, default=1,
+                   help="mesh: spatial (image-height) shards, ranks on this host")
+    p.add_argument("--data", type=int, default=1,
+                   help="mesh: data-parallel (batch) shards, ranks on this host")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA device; raises without one)")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> List[str]:
-    """Run the CLI; returns the paths of the PNGs written."""
-    args = parse_args(argv)
-    check_mesh(args)
-    device = resolve_device(args.device)
-    kind = dataset_kind(args)
-    cfg = model_config(
+def config(args):
+    """The `ModelConfig` of the flags."""
+    return model_config(
         args.model,
         max_disp=args.max_disp,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         impl=args.sga_impl,
     )
-    cfg.validate_image_shape(args.crop_height, args.crop_width)
-    model = build_model(cfg, device, state_dict=load_weights(cfg, args.resume, "predicting"))
 
-    os.makedirs(args.save_path, exist_ok=True)
+
+def main(argv=None) -> List[str]:
+    """Run the CLI; returns the paths of the PNGs written (rank 0's)."""
+    args = parse_args(argv)
+    cfg = config(args)
+    cfg.validate_image_shape(args.crop_height, args.crop_width)
+    check_flags(args, cfg, args.crop_height)
+    return serve(run, args)
+
+
+def run(rank: int, world: int, args) -> List[str]:
+    """The CLI on one rank of the mesh (the only one for one device); rank
+    0 writes the PNGs and returns their paths, the others return []."""
+    device = resolve_device(args.device)
+    cfg = config(args)
+    mesh = inference_mesh(args.data, args.space)
+    state = load_weights(cfg, args.resume, "predicting", quiet=rank > 0)
+    model = build_model(cfg, device, state_dict=state, mesh=mesh)
+    lead = rank == 0
+
+    kind = dataset_kind(args)
+    if lead:
+        os.makedirs(args.save_path, exist_ok=True)
     if kind == "synthetic":
         ds = SyntheticStereoDataset(
             crop_height=args.crop_height,
@@ -175,6 +223,8 @@ def main(argv=None) -> List[str]:
         left = np.stack([s["left"] for s in samples])
         right = np.stack([s["right"] for s in samples])
         disps = predict(model, left, right).float().cpu().numpy()
+        if not lead:
+            continue
         for j, i in enumerate(idx):
             # Unpad: the test transform pads top/right, so the original
             # frame is the bottom-left corner.

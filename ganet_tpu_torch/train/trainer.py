@@ -63,9 +63,9 @@ def check_train_mesh(mesh: MeshConfig) -> None:
     `space` or `disp` above 1."""
     if mesh.space > 1 or mesh.disp > 1:
         raise NotImplementedError(
-            f"mesh {mesh}: the port trains data-parallel only (space = disp = 1); spatial"
-            " sharding of the model (ROADMAP queue 1 #7) and channel tensor parallelism over"
-            " the disp axis (queue 1 #8) are not ported yet"
+            f"mesh {mesh}: the port trains data-parallel only (space = disp = 1); spatially"
+            " sharded training (ROADMAP queue 1 #7b) and channel tensor parallelism over the"
+            " disp axis (queue 1 #8) are not ported yet"
         )
 
 

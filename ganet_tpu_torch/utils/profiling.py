@@ -11,7 +11,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import time
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
@@ -62,22 +62,52 @@ def probe_ms(device: torch.device, repeats: int = 3) -> float:
     return median_ms(chain, repeats, device)
 
 
-# The wrappers whose launches `recording_shapes` records: (count name, the
-# wrapper's name in ops/sga.py or ops/lga.py, and the index of its radius
-# argument, for the LGA kernels).
-RECORDED = (("sga_fwd", "sga_sweep_kernel", None), ("lga_fwd", "lga_kernel", 2),
-            ("sga_bwd", "sga_sweep_bwd_kernel", None), ("lga_bwd", "lga_bwd_kernel", 3))
+# Every kernel wrapper of ops/sga.py and ops/lga.py: (the name its
+# launches are counted under, the wrapper's name in its module).
+KERNELS = (("sga_fwd", "sga_sweep_kernel"), ("lga_fwd", "lga_kernel"),
+           ("sga_bwd", "sga_sweep_bwd_kernel"), ("lga_bwd", "lga_bwd_kernel"),
+           ("sga_fwd_seeded", "sga_sweep_seeded_kernel"),
+           ("sga_bwd_seeded", "sga_sweep_bwd_seeded_kernel"), ("lga3d_fwd", "lga3d_kernel"))
+# The kernels whose launches `recording_shapes` records, by count name,
+# with the index of the wrapper's radius argument (the LGA kernels).  K5,
+# the seeded sweep of the sharded SGA wavefront, is recorded by the whole
+# block it sweeps a window of.
+RECORDED = {"sga_fwd": None, "lga_fwd": 2, "sga_bwd": None, "lga_bwd": 3, "sga_fwd_seeded": None}
+
+
+def _module(attr: str):
+    return _lga if attr.startswith("lga") else _sga
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """{count name: wrapper} of every kernel, looked up now:
+    `recording_shapes` stands in for some of them while it records."""
+    return {name: getattr(_module(attr), attr) for name, attr in KERNELS}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> Dict[str, int]:
+    """{count name: launches} of every kernel since the last reset."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 @contextlib.contextmanager
 def recording_shapes(seen):
-    """Count in `seen` (a Counter) every K1, K2, K3 and K4 launch in the
-    body by kernel, volume shape, dtype (and the LGA kernels' radius).  Each
-    wrapper counts its launches on its module's name, which the recorders
-    hold meanwhile; the counts go back to the wrappers after."""
+    """Count in `seen` (a Counter) every launch of the kernels in
+    `RECORDED` (K1, K2, K3, K4 and K5) in the body by kernel, volume shape,
+    dtype (and the LGA kernels' radius).  Each wrapper counts its launches
+    on its module's name, which the recorders hold meanwhile; the counts go
+    back to the wrappers after."""
     swapped = []
-    for name, attr, radius_at in RECORDED:
-        module = _lga if attr.startswith("lga") else _sga
+    for name, attr in KERNELS:
+        if name not in RECORDED:
+            continue
+        module, radius_at = _module(attr), RECORDED[name]
         fn = getattr(module, attr)
 
         def rec(x, *args, fn=fn, name=name, radius_at=radius_at, **kw):

@@ -135,10 +135,17 @@ def test_fresh_init_fallback_warns_and_missing_resume_raises(files, tmp_path, mo
 
 
 def test_meshes_are_not_ported(files):
-    for flag in ("--space", "--data"):
-        for main in (evaluate.main, t_predict.main):
-            with pytest.raises(NotImplementedError, match="queue 1"):
-                main(files["data"] + CROP + ["--device", "cpu", flag, "2"])
+    """Meshes are served now (tests/test_torch_spatial_cli.py); the flags
+    that no mesh can serve exit before any rank starts: a height that
+    --space cannot share, a --batch that --data does not divide (predict's;
+    evaluate batches --data frames), an axis below 1."""
+    for main in (evaluate.main, t_predict.main):
+        with pytest.raises(SystemExit, match=r"multiple of 3 \* 2 \* 5 = 30"):
+            main(files["data"] + CROP + ["--device", "cpu", "--space", "5"])
+        with pytest.raises(SystemExit, match="at least 1"):
+            main(files["data"] + CROP + ["--device", "cpu", "--data", "0"])
+    with pytest.raises(SystemExit, match="divisible by --data 2"):
+        t_predict.main(files["data"] + CROP + ["--device", "cpu", "--data", "2"])
 
 
 def test_bench_quick_on_the_cpu(capsys):
