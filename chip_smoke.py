@@ -118,7 +118,25 @@ CUDA toolkit.  Phases, each printing its lines:
      against their expected counts, its step time, gradient all-reduce time
      and peak memory (two ranks on one card: not a multi-GPU time); then
      K1-K4 against their plain versions at every volume shape the ranks
-     launched them at.
+     launched them at;
+ 17. H-sharded inference on 4 ranks that share the card over gloo
+     (GANet_deep 576x960 over `space` 4) against one device, float32 and
+     bfloat16, each rank's launches, time and peak memory; the predict CLI
+     with --space 2 and --space 2 --data 2; K1, K5 and K2 at every shape
+     launched;
+ 18. H-sharded training on 2 ranks over `space` that share the card over
+     gloo (GANet_deep at 240x528, max_disp 192, global batch 2, remat
+     sga): (a) one float32 step (TF32 off) of the ranks against one step
+     of the same model on the same batch in this process, which runs it
+     twice to show its own noise (loss, running statistics, gradients, the
+     Adam update's direction; the ranks' parameters the same bits); (b)
+     each rank's bfloat16 step time, peak memory and launches of K1, K3,
+     K5, K6, K2 and K4 (two ranks on one card: not a multi-GPU time); (c)
+     `python -m ganet_tpu_torch.train --mesh_space 2` in process for 2
+     steps on phase 15's SceneFlow-shaped files, and the predict CLI on one
+     device from its checkpoint; (d) `python -m ganet_tpu_torch.dryrun 4`
+     (mesh (2, 2, 1)); then K1-K6 against their plain versions at every
+     shape the ranks launched them at.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -1587,9 +1605,9 @@ def recorded_line(seen, launches) -> str:
 def hold_at_path_shapes(torch, gen, shapes, tag) -> None:
     """K1 and K3 (each direction, storing and accumulating), K2 and K4
     against their plain versions, float32 and bfloat16, at each volume
-    shape in `shapes` (from `recording_shapes`); K5 (both directions,
-    seeded and not) on each column window of the sharded wavefront's
-    chunks (`chunk_layout`) of each block it swept."""
+    shape in `shapes` (from `recording_shapes`); K5 and K6 (both
+    directions, seeded and not) on each column window of the sharded
+    wavefront's chunks (`chunk_layout`) of each block they swept."""
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
@@ -1602,7 +1620,7 @@ def hold_at_path_shapes(torch, gen, shapes, tag) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             name = f"{tag} {kind} {shape} {str(dtype)[6:]}"
             x, p = x32.to(dtype), p32.to(dtype)
-            if kind in ("sga_fwd", "sga_bwd", "sga_fwd_seeded"):
+            if kind in ("sga_fwd", "sga_bwd", "sga_fwd_seeded", "sga_bwd_seeded"):
                 N, D, H, W = shape
                 w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen),
                                  dim=2).to(dtype)
@@ -1614,6 +1632,22 @@ def hold_at_path_shapes(torch, gen, shapes, tag) -> None:
                     for col0 in starts:
                         hold_k5(torch, S, x, w, seed, col0, cols, f"{name} [{col0}:{col0 + cols}]")
                     del seed
+                elif kind == "sga_bwd_seeded":
+                    cols, starts = chunk_layout(W)
+                    seed = p[:, :, 0, :cols].contiguous()
+                    gbar = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                    dbound = torch.randn((N, D, cols), device="cuda", generator=gen)
+                    dx0 = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                    dw0 = torch.randn(tuple(w.shape), device="cuda", generator=gen).to(dtype)
+                    for col0 in starts:
+                        def k5(direction, reverse, valid, col0=col0):
+                            return S.sga_sweep_seeded_kernel(
+                                x, w, reverse, seed, valid, direction=direction, col0=col0,
+                                cols=cols, out=torch.zeros_like(x))[0]
+
+                        hold_k6(torch, S, x, w, seed, gbar, dbound, dx0, dw0, col0, cols, k5,
+                                f"{name} [{col0}:{col0 + cols}]")
+                    del seed, gbar, dbound, dx0, dw0
                 else:
                     gbar = torch.randn(shape, device="cuda", generator=gen).to(dtype)
                     hold_k3(torch, S, x, w, gbar, p, name)
@@ -2438,6 +2472,236 @@ def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
         hold_at_path_shapes(torch, gen, shapes, "[17]")
 
 
+
+# Phase 18: H-sharded training of GANet_deep on ST_RANKS ranks over `space`
+# that share the card, the train CLI with --mesh_space and the dryrun.
+ST_RANKS = 2
+ST_MAX_DISP = 192
+ST_TIMED = 3  # timed steps after the 2 counted ones: the min of the last 3 of 5
+ST_CLI_STEPS = 2
+
+
+def sharded_step_launches(cfg, W: int, remat: str) -> dict:
+    """Launches of one rank's sharded training step at image width W: the
+    forward's (`sharded_forward_launches`), again for the SGA blocks and
+    the final head under remat "sga" or "full" (their recompute), and the
+    backward's: 2 K3 a SGA block (the W sweeps), one K6 for each K5 of the
+    forward, and one K4 for each K2 of the forward."""
+    fwd = sharded_forward_launches(cfg, W)
+    times = 2 if remat in ("sga", "full") else 1
+    return {"sga_fwd": times * fwd["sga_fwd"], "sga_fwd_seeded": times * fwd["sga_fwd_seeded"],
+            "lga_fwd": times * fwd["lga_fwd"], "sga_bwd": fwd["sga_fwd"],
+            "sga_bwd_seeded": fwd["sga_fwd_seeded"], "lga_bwd": fwd["lga_fwd"]}
+
+
+def ranks_agree(torch, ranks, params) -> tuple:
+    """(whether the ranks' parameters are the same bits, the worst
+    norm-relative gap of their running statistics).  The gradients are
+    summed over the mesh, so every rank takes the same update; but each
+    rank of a `space` line runs the 2D part on its own, and on the card
+    cuDNN's default algorithms do not repeat bit for bit, so that part's
+    running statistics are each rank's, equal up to float noise."""
+    first = ranks[0]["state"]
+    same = all(torch.equal(r["state"][n], first[n]) for r in ranks[1:] for n in params)
+    stats = [k for k in first if "running" in k]
+    gap = max((norm_rel(torch, r["state"][k], first[k]) for r in ranks[1:] for k in stats), default=0.0)
+    return same, gap
+
+
+def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
+    """H-sharded training: (a) parity of ST_RANKS ranks over `space` with
+    one device on the same batch, (b) each rank's launches, step time and
+    peak memory, (c) the train CLI with --mesh_space from files and the
+    predict CLI on one device from its checkpoint, (d) the dryrun on 4
+    ranks; then K1-K6 held at every shape the ranks launched.  `device`
+    "cpu" rehearses the phase's control flow on the plain versions (no
+    times, no kernels to hold)."""
+    import math
+    import os
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from ganet_tpu_torch import ganet_deep
+    from ganet_tpu_torch import predict as predict_cli
+    from ganet_tpu_torch import train as train_cli
+    from ganet_tpu_torch.parallel import dp_cases as K
+    from ganet_tpu_torch.parallel.launch import launch
+    from ganet_tpu_torch.train.checkpoint import load_inference_state
+    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
+
+    (CH, CW), D = TRAIN_CROP, ST_MAX_DISP
+    cuda = device == "cuda"
+    mesh = (1, ST_RANKS)
+    deep = dict(kind="step", model="GANet_deep", size=(CH, CW), max_disp=D, batch=2, remat="sga",
+                mesh=mesh)
+    cases = [dict(deep, name="parity", dtype="float32", steps=1, seed=18),
+             dict(deep, name="timed", dtype="bfloat16", steps=2, reps=ST_TIMED, seed=18)]
+    shapes = Counter()
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        launch(K.run_cases, ST_RANKS, (cases, out_dir, device), backend="gloo", device=device)
+        log(f"[18] {ST_RANKS} ranks over space on one card (gloo): GANet_deep {CH}x{CW} D={D} "
+            f"global batch 2, remat sga, the f32 parity step and the bf16 steps in "
+            f"{time.perf_counter() - t0:.1f} s")
+        results = {c["name"]: K.load(c, out_dir, ST_RANKS) for c in cases}
+
+    # (b) launches a step on every rank.
+    want = sharded_step_launches(ganet_deep(max_disp=D), CW, "sga")
+    for case in cases:
+        for rank, res in enumerate(results[case["name"]]):
+            for launched in res["launches"]:
+                full = {k: want.get(k, 0) for k in launched}
+                if cuda and launched != full:  # the plain versions count nothing
+                    raise AssertionError(f"[18] {case['name']} rank {rank}: launched {launched} a "
+                                         f"step, expected {full}")
+            shapes.update(res["shapes"])
+        log(f"  [18] (b) {case['name']} ({case['dtype']}): launches a step on each of the {ST_RANKS} "
+            f"ranks {want} (K7 none) ok")
+    for e in entries:
+        if e["name"] == "sga_bwd_seeded":  # K6's model path: a step's launches over the ranks
+            e["launches"] = ST_RANKS * want["sga_bwd_seeded"]
+
+    # (a) parity against one step in this process on the same batch, run twice.
+    ranks = results["parity"]
+    refs = [K.reference(cases[0], device) for _ in range(2)]
+    params = sorted(refs[0]["grads"])
+    flat = lambda g: torch.cat([g[n].flatten().double() for n in sorted(g)])  # noqa: E731
+    stats = [k for k in refs[0]["state"] if "running" in k]
+
+    def gaps(got, ref):
+        """(loss rel, stats worst, grads all, (grads worst, name), flipped share, moved, flipped)"""
+        lr = K.train_config(cases[0]).optim.lr
+        moved = flipped = 0
+        for n in params:
+            mine, theirs = ref["state"][n] - ref["init"][n], got["state"][n] - ref["init"][n]
+            sel = mine.abs() > lr / 2
+            moved += int(sel.sum())
+            flipped += int((sel & (mine * theirs <= 0)).sum())
+        return (abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
+                max(norm_rel(torch, got["state"][k], ref["state"][k]) for k in stats),
+                norm_rel(torch, flat(got["grads"]), flat(ref["grads"])),
+                max((norm_rel(torch, got["grads"][n], ref["grads"][n]), n) for n in params),
+                flipped / max(moved, 1), moved, flipped)
+
+    def line(g) -> str:
+        return (f"loss rel {g[0]:.2e}, running statistics worst {g[1]:.2e}, gradients all "
+                f"{g[2]:.2e}, worst {g[3][0]:.2e} {g[3][1]}, update: {g[6]} of {g[5]} moved "
+                f"elements ({g[4]:.3%}) the other way or not at all")
+
+    self_noise = gaps(refs[1], refs[0])
+    log(f"[18] (a) one device's f32 step twice (its own noise): {line(self_noise)}")
+    got = ranks[0]
+    g = gaps(got, refs[0])
+    same, buffers = ranks_agree(torch, ranks, params)
+    ok = (same and buffers <= DP_STATS_TOL and g[0] <= DP_LOSS_RTOL and g[1] <= DP_STATS_TOL and g[2] <= GRAD_TOL_ALL
+          and g[3][0] <= GRAD_TOL_PARAM and g[5] > 0 and g[4] <= DP_FLIP_SHARE
+          and math.isfinite(got["losses"][0]))
+    log(f"[18] (a) parity, GANet_deep {CH}x{CW} D={D} f32 (TF32 off) remat sga, {ST_RANKS} ranks "
+        f"over space vs one process, batch 2: loss {got['losses'][0]:.6f} vs "
+        f"{refs[0]['losses'][0]:.6f}; {line(g)}; gates: loss {DP_LOSS_RTOL}, statistics "
+        f"{DP_STATS_TOL}, gradients {GRAD_TOL_ALL} / {GRAD_TOL_PARAM}, update {DP_FLIP_SHARE:.0%}; "
+        f"the ranks' parameters {'the same bits' if same else 'DIFFER'}, their running statistics "
+        f"{buffers:.2e} apart (each rank's own 2D part) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[18] the space-sharded step disagrees with the one-device step")
+    del refs, ranks, got
+
+    # (b) per-rank figures of the timed case (bf16, remat sga).
+    for rank, res in enumerate(results["timed"]):
+        if not all(map(math.isfinite, res["losses"])):
+            raise AssertionError(f"[18] timed rank {rank}: losses {res['losses']}")
+        if not cuda:
+            continue
+        log(f"[18] (b) rank {rank}, GANet_deep {CH}x{CW} D={D} bf16 remat sga, global batch 2 over "
+            f"space {ST_RANKS}: step {min(res['step_ms']):.1f} ms (host clock after a barrier to a "
+            f"synchronize, min of the last {len(res['step_ms'])} of {2 + len(res['step_ms'])}; all "
+            f"{', '.join(f'{t:.1f}' for t in res['step_ms'])}); gradient all-reduce "
+            f"{min(res['allreduce_ms']):.1f} ms; peak memory {res['peak_gib']:.2f} GiB; "
+            f"{ST_RANKS} ranks time-slicing one card over gloo: not a multi-GPU time; card {smi}")
+    if not ranks_agree(torch, results["timed"], params)[0]:
+        raise AssertionError("[18] the timed ranks' parameters differ")
+    del results
+
+    # (c) the train CLI, --mesh_space 2, from phase 15's SceneFlow-shaped files,
+    # and the predict CLI on one device from its checkpoint.
+    rng = np.random.default_rng(18)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "sceneflow")
+        train_list, _ = write_sceneflow(root, "TRAIN", TRAIN_FRAMES, SCENEFLOW_FRAME, rng)
+        val_list, val_lines = write_sceneflow(root, "TEST", 1, (CH, CW), rng)
+        save = os.path.join(tmp, "ckpt")
+        dev = [] if cuda else ["--device", "cpu"]
+        seen = Counter()
+        with recording_shapes(seen):
+            reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(
+                ["--model", "GANet_deep", "--max_disp", str(D), "--bf16", "1", "--batchSize", "2",
+                 "--crop_height", str(CH), "--crop_width", str(CW), "--data_path", root,
+                 "--training_list", train_list, "--val_list", val_list, "--log_every", "1",
+                 "--save_path", save, "--mesh_space", str(ST_RANKS), "--nEpochs", "1",
+                 "--steps", str(ST_CLI_STEPS)] + dev)
+            if cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+        shapes.update(seen)
+        full = {k: ST_CLI_STEPS * want.get(k, 0) for k in launches}
+        rows = train_rows(save, "epoch0")
+        final = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+        weights = load_inference_state(save)
+        ok = ((launches == full or not cuda) and trainer.cfg.model.remat == "sga"
+              and trainer.mesh.cfg.space == ST_RANKS
+              and [r["step"] for r in rows] == list(range(1, ST_CLI_STEPS + 1))
+              and all(math.isfinite(r["loss"]) for r in rows)
+              and sorted(os.listdir(save)) == ["0", "train.jsonl"]
+              and sorted(weights) == sorted(final)
+              and all(torch.equal(weights[k].cpu(), v) for k, v in final.items()))
+        log(f"[18] (c) train CLI --mesh_space {ST_RANKS} (bf16, remat sga, batch 2, {ST_CLI_STEPS} "
+            f"steps from {TRAIN_FRAMES} SceneFlow-shaped frames): {secs:.2f} s with the ranks' start; "
+            f"rank 0 launched {launches} (expected {full}); rows "
+            + "; ".join(f"step {r['step']} loss {r['loss']:.4f}" for r in rows)
+            + f"; the checkpoint is rank 0's state bit for bit {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[18] the --mesh_space CLI run did not train, log and save once")
+        del trainer, final, weights
+        one = os.path.join(root, "one.list")
+        with open(one, "w") as f:
+            f.write(val_lines[0])
+        written = predict_cli.main(["--resume", save, "--data_path", root, "--test_list", one,
+                                    "--crop_height", str(CH), "--crop_width", str(CW), "--max_disp",
+                                    str(D), "--model", "GANet_deep", "--bf16", "1", "--save_path",
+                                    os.path.join(tmp, "result")] + dev)
+        ok = len(written) == 1 and os.path.getsize(written[0]) > 0
+        log(f"[18] (c) predict CLI on one device from the --mesh_space checkpoint: wrote "
+            f"{[os.path.basename(p) for p in written]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[18] the predict CLI did not read the --mesh_space checkpoint")
+
+    # (d) the dryrun, python -m ganet_tpu_torch.dryrun 4.
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ganet_tpu_torch.dryrun", "4"] + dev,
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    ok = out.returncode == 0 and bool(lines) and lines[-1].startswith(
+        "dryrun_multichip ok: mesh={'data': 2, 'space': 2, 'disp': 1} ")
+    log(f"[18] (d) python -m ganet_tpu_torch.dryrun 4: {lines[-1] if lines else '(no output)'} "
+        f"({time.perf_counter() - t0:.1f} s with its start) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("[18] the dryrun failed")
+
+    if cuda:
+        torch.cuda.empty_cache()
+        log(f"[18] K1-K6 against their plain versions at the {len(shapes)} shapes the ranks launched")
+        hold_at_path_shapes(torch, gen, shapes, "[18]")
+
+
 def main() -> int:
     try:
         import torch
@@ -2517,6 +2781,10 @@ def main() -> int:
         log(f"[17] H-sharded inference on {SP_RANKS} ranks sharing the card, and the predict CLI "
             f"on meshes ({time.perf_counter() - t0:.1f} s)")
         phase_spatial(torch, gen, smi, entries)
+    if want(18):
+        log(f"[18] H-sharded training on {ST_RANKS} ranks sharing the card, the train CLI with "
+            f"--mesh_space and the dryrun ({time.perf_counter() - t0:.1f} s)")
+        phase_spatial_train(torch, gen, smi, entries)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

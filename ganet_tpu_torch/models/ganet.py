@@ -14,16 +14,19 @@ in train mode, running statistics in eval mode.
 
 With a mesh (`parallel.mesh.Mesh`) whose `space` axis has more than one
 rank, the model is one rank of the counterpart of the JAX package's
-`GANet(cfg, mesh)` in eval mode: it runs the 2D part (features, `conv_x`/
-`conv_y`, guidance) on the whole image, as the JAX package does with its
-inputs replicated, then takes this rank's block of rows of the features
-(the cost volume shifts along W only, so each rank builds its block of
-it), of the SGA guidance at H/3 and H/6 and of the LGA guidance at H, and
-runs the aggregation on the blocks over the mesh's `space` group
-(`layers.shard_space`).  It returns this rank's block of rows of the
-disparity; `entry.predict` joins the blocks.  The image height must meet
-`parallel.spatial.check_spatial_shape`.  The batch is the caller's: the
-`data` axis splits it in `entry.predict`.
+`GANet(cfg, mesh)`, in either mode: it runs the 2D part (features,
+`conv_x`/`conv_y`, guidance) on the whole image, as the JAX package does
+with its inputs replicated, then takes this rank's block of rows of the
+features (the cost volume shifts along W only, so each rank builds its
+block of it), of the SGA guidance at H/3 and H/6 and of the LGA guidance
+at H, and runs the aggregation on the blocks over the mesh's `space`
+group (`layers.shard_space`).  It returns this rank's block of rows of
+the disparity, in train mode of every head's; `entry.predict` joins the
+blocks, and the train step holds them against the targets' rows
+(`train/trainer.py`).  The image height must meet
+`parallel.spatial.check_spatial_shape`, checked on every call.  The batch
+is the caller's: the `data` axis splits it in `entry.predict` and in the
+trainer's batch iterator.
 """
 
 from __future__ import annotations
@@ -70,11 +73,6 @@ class GANet(nn.Module):
         group = None if self.mesh is None else self.mesh.space_group
         space = space_size(group)
         if space > 1:
-            if self.training:
-                raise NotImplementedError(
-                    "spatially sharded training (ROADMAP queue 1 #7b) is not ported yet; the"
-                    " sharded model runs in eval mode"
-                )
             check_spatial_shape(cfg, H, space)
         dtype = torch_dtype(cfg.compute_dtype)
         left = left.permute(0, 3, 1, 2).to(dtype)

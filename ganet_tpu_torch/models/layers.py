@@ -82,14 +82,26 @@ def recomputing():
 
 def sync_batch_norm(module: nn.Module, group) -> None:
     """Train-mode BatchNorm in `module` takes its batch moments over the
-    ranks of `group` (the mesh's `data` axis), as flax's BatchNorm under
-    GSPMD takes them over the global batch; None: over this rank's batch.
-    The group is kept on each BatchNorm module, so that `remat`'s
-    recompute, which runs in the autograd engine's thread, reaches it
-    too."""
+    ranks of `group`, as flax's BatchNorm under GSPMD takes them over the
+    global tensor; None: over this rank's tensor.  The group is kept on
+    each BatchNorm module, so that `remat`'s recompute, which runs in the
+    autograd engine's thread, reaches it too.
+
+    A sharded model takes two groups (`train.trainer.create_train_state`):
+    the whole model the mesh's `data` group, then its `cost_agg` the
+    `data` x `space` plane (`Mesh.volume_group`).  The 2D part (`feature`,
+    `conv_x`, `conv_y`, `guidance`) runs on the whole image on every rank
+    of a `space` line, so its moments are already whole along H and are
+    summed over `data` only: a sum over `space` too would count each row
+    `space` times in the sums and in the count alike, the same moments
+    for a collective over a group `space` times as wide.  The
+    aggregation's volumes hold this rank's block of rows, so their
+    moments sum over both axes: over `data` alone each rank would
+    normalise by its own rows' moments.  This is the one place where the
+    sharded model does not take every BatchNorm over the mesh."""
     for m in module.modules():
         if isinstance(m, nn.modules.batchnorm._BatchNorm):
-            m.data_group = group
+            m.bn_group = group
 
 
 def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
@@ -102,14 +114,14 @@ def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tens
     runs again in backward (inside `recomputing()`) leaves them alone: they
     move once a step.
 
-    With a `data_group` (`sync_batch_norm`) the moments are global: the
+    With a `bn_group` (`sync_batch_norm`) the moments are global: the
     sums of x and x^2 and the element count are summed over the group's
     ranks in one all-reduce, whose backward sums their cotangents, and a
     recompute issues it again as the forward did."""
     dims = [0] + list(range(2, x.dim()))
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = at_least_f32(x)
-    group = getattr(bn, "data_group", None)
+    group = getattr(bn, "bn_group", None)
     if group is None:
         m = xf.mean(dim=dims)
         ex2 = (xf * xf).mean(dim=dims)

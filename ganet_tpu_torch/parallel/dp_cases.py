@@ -1,4 +1,4 @@
-"""Data-parallel train-step cases, run on every rank of a launch, and the
+"""Train-step cases on a mesh, run on every rank of a launch, and the
 one-device run that they are held against.
 
     launch(run_cases, N, (cases, out_dir, device), backend=..., device=device)
@@ -7,8 +7,12 @@ one-device run that they are held against.
 Each case is a dict:
   name      file stem of the results;
   kind      "step": train steps of a GANet through `create_train_state`
-            and `make_train_step` on a mesh `MeshConfig(data=N)`; "bn":
+            and `make_train_step` on the mesh `MeshConfig(*mesh)`; "bn":
             one train-mode BatchNorm (`bn_train`) forward and backward;
+            "trainer": a `Trainer` on the mesh, its first batch's digest
+            and its check that a `space` line reads one batch;
+  mesh      (data, space) of a step or trainer case, data x space = N
+            (default (N, 1));
   model     preset name ("GANet_small", "GANet_deep"), with
   size      (H, W), max_disp, dtype ("float32", "bfloat16", or "float64",
             which measures the float32 noise of the others), remat,
@@ -16,24 +20,28 @@ Each case is a dict:
   batch     the global batch, which N divides;
   steps     train steps, each on its own global batch;
   valid     "dense", or "unequal": the second half of each batch (the
-            last ranks' rows) loses the valid pixels of its top third, so
-            that the ranks' valid counts differ;
+            last `data` ranks' rows) loses the valid pixels of its top
+            third of rows, so that the ranks' valid counts differ along
+            `data` and, with `space` 2, between the row blocks;
   weights   optional path of a `state_dict` that every rank (and the
             reference) loads before the first step;
   reps      (step, CUDA) time that many further steps between
             synchronises, and the gradient all-reduce alone as often;
   shape     (bn) the global input's (B, C, D, H, W), seed.
 Every input is made from the case's seed with numpy, alike on every rank
-and in the reference.  Each rank takes its rows of each global batch
-(rank r: rows [r B/N, (r+1) B/N), as `BatchIterator` slices them), and
-saves to `<out_dir>/<name>.<rank>.pt`: the losses, the last step's
-metrics, the state_dict after the steps (on the CPU), its digest, and on
-a CUDA device the launches of K1-K4 a step, the step and all-reduce times
-and the peak memory.
+and in the reference.  Each rank takes its `data` index's slice of each
+global batch (index i of `data` D: batch rows [i B/D, (i+1) B/D), as
+`BatchIterator` slices them; the ranks of a `space` line pass the same
+whole images, and the train step takes their rows), and saves to
+`<out_dir>/<name>.<rank>.pt`: the losses, the last step's metrics, the
+state_dict after the steps (on the CPU), its digest, the last step's
+gradients, and on a CUDA device the launches of every kernel a step, the
+step and all-reduce times and the peak memory.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import Counter
@@ -48,12 +56,18 @@ from ganet_tpu_torch.data import SyntheticStereoDataset, stack
 from ganet_tpu_torch.models.layers import bn_train, sync_batch_norm
 from ganet_tpu_torch.parallel.comm import all_reduce_grads
 from ganet_tpu_torch.train.state import model_digest
-from ganet_tpu_torch.train.trainer import create_train_state, make_train_step, train_mesh
+from ganet_tpu_torch.train.trainer import (
+    Trainer,
+    batch_digest,
+    create_train_state,
+    make_train_step,
+    train_mesh,
+)
 from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
 
-def train_config(case: dict, data: int = 1) -> TrainConfig:
-    """The `TrainConfig` of a step case on a mesh of `data` ranks."""
+def train_config(case: dict, data: int = 1, space: int = 1) -> TrainConfig:
+    """The `TrainConfig` of a step case on the mesh (data, space, 1)."""
     H, W = case["size"]
     model = model_config(case["model"], max_disp=case["max_disp"],
                          compute_dtype=case.get("dtype", "float32"), remat=case.get("remat", "none"))
@@ -62,7 +76,7 @@ def train_config(case: dict, data: int = 1) -> TrainConfig:
         data=DataConfig(crop_height=H, crop_width=W, kind="synthetic",
                         left_right=case.get("left_right", False)),
         optim=OptimConfig(lr=case.get("lr", 1e-3)),
-        mesh=MeshConfig(data=data),
+        mesh=MeshConfig(data=data, space=space),
         batch_size=case["batch"],
         seed=case.get("seed", 0),
     )
@@ -122,8 +136,11 @@ def _bn_run(case: dict, rank: int, n: int, device, group) -> Dict[str, object]:
             "state": {k: v.cpu() for k, v in bn.state_dict().items()}}
 
 
-def _step_run(case: dict, rank: int, n: int, device, keep_init: bool = False) -> Dict[str, object]:
-    cfg = train_config(case, n)
+def _step_run(case: dict, rank: int, mesh: tuple, device, keep_init: bool = False) -> Dict[str, object]:
+    data, space = mesh
+    cfg = train_config(case, data, space)
+    # This rank's slice of each global batch: its `data` index's.
+    i, n = rank // space, data
     cuda = torch.device(device).type == "cuda"
     state = create_train_state(cfg, device, mesh=train_mesh(cfg.mesh))
     if cfg.model.compute_dtype == "float64":
@@ -141,7 +158,7 @@ def _step_run(case: dict, rank: int, n: int, device, keep_init: bool = False) ->
     with recording_shapes(shapes):
         for b in all_batches:
             reset_launches()
-            m = step(state, {k: _rows(v, rank, n) for k, v in b.items()})
+            m = step(state, {k: _rows(v, i, n) for k, v in b.items()})
             losses.append(m["loss"].item())
             launches.append(read_launches())
     result: Dict[str, object] = {
@@ -161,7 +178,7 @@ def _step_run(case: dict, rank: int, n: int, device, keep_init: bool = False) ->
     if cuda:
         result["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         times, reduce_ms = [], []
-        local = {k: _rows(v, rank, n) for k, v in all_batches[0].items()}
+        local = {k: _rows(v, i, n) for k, v in all_batches[0].items()}
         for _ in range(case.get("reps", 0)):
             dist.barrier()
             torch.cuda.synchronize()
@@ -181,8 +198,31 @@ def _step_run(case: dict, rank: int, n: int, device, keep_init: bool = False) ->
     return result
 
 
+def _trainer_run(case: dict, rank: int, mesh: tuple, device, out_dir: str) -> Dict[str, object]:
+    """A `Trainer` on the mesh: the digest of its first batch, then its
+    check at the first step, given a batch that odd ranks alter (which
+    must raise on every rank of a line with an altered rank), and one step
+    of `fit`."""
+    cfg = dataclasses.replace(train_config(case, *mesh), num_epochs=1, steps_per_epoch=1,
+                              save_path=os.path.join(out_dir, f"{case['name']}.ckpt"))
+    trainer = Trainer(cfg, device=device)
+    it = iter(trainer.train_iter)
+    batch = {k: v for k, v in next(it).items() if k in trainer.train_keys}
+    it.close()
+    altered = {k: v + (rank % 2) for k, v in batch.items()}
+    try:
+        trainer._check_same_batch(altered)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    trainer.fit()
+    trainer.close()
+    return {"digest": batch_digest(batch), "raised": raised, "step": trainer.state.step,
+            "index": dict(trainer.mesh.index), "state_digest": model_digest(trainer.state.model)}
+
+
 def run_cases(rank: int, nprocs: int, cases: Sequence[dict], out_dir: str, device: str) -> None:
-    """Run every case on this rank of a data axis of `nprocs` ranks, on
+    """Run every case on this rank of a launch of `nprocs` ranks, on
     `device` ("cuda": this rank's card, float32 convolutions and products
     without TF32, as the caller's reference runs them); see the module
     docstring."""
@@ -191,10 +231,13 @@ def run_cases(rank: int, nprocs: int, cases: Sequence[dict], out_dir: str, devic
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     for case in cases:
+        mesh = tuple(case.get("mesh", (nprocs, 1)))
         if case["kind"] == "bn":
             result = _bn_run(case, rank, nprocs, device, group)
+        elif case["kind"] == "trainer":
+            result = _trainer_run(case, rank, mesh, device, out_dir)
         else:
-            result = _step_run(case, rank, nprocs, device)
+            result = _step_run(case, rank, mesh, device)
         torch.save(result, os.path.join(out_dir, f"{case['name']}.{rank}.pt"))
         del result
         if device == "cuda":
@@ -213,4 +256,4 @@ def reference(case: dict, device) -> Dict[str, object]:
     "init"."""
     if case["kind"] == "bn":
         return _bn_run(case, 0, 1, device, None)
-    return _step_run(dict(case, reps=0), 0, 1, device, keep_init=True)
+    return _step_run(dict(case, reps=0), 0, (1, 1), device, keep_init=True)

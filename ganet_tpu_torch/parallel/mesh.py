@@ -11,7 +11,11 @@ train step sums BatchNorm moments, losses, metrics and gradients over
 inference (`entry.predict`); the `space` axis the H-sharded model of
 inference (`models/ganet.py`): its halo convolutions and upsample
 (`parallel/spatial.py`), SGA wavefront and halo LGA
-(`parallel/sharded_sga.py`, `parallel/sharded_lga.py`).
+(`parallel/sharded_sga.py`, `parallel/sharded_lga.py`).  The same
+blocks of rows train (`train/trainer.py`): then every sum over the
+volumes, their BatchNorm moments, the loss, the metrics and the
+gradients, runs over `volume_group`, the plane of `data` x `space` ranks
+that share a `disp` index.
 
 The JAX module's `batch_sharding`, `volume_sharding` and `constrain_*`
 helpers are GSPMD sharding annotations, which have no counterpart in
@@ -51,6 +55,13 @@ class Mesh:
     def space_group(self) -> dist.ProcessGroup:
         return self.groups["space"]
 
+    @property
+    def volume_group(self) -> dist.ProcessGroup:
+        """The ranks that share this rank's `disp` index: the whole
+        `data` x `space` plane, over which a train step sums what the
+        blocks of the volumes hold (the world while `disp` is 1)."""
+        return self.groups["volume"]
+
 
 def make_mesh(cfg: MeshConfig) -> Mesh:
     """Build the mesh's process groups over the initialised default group,
@@ -75,6 +86,12 @@ def make_mesh(cfg: MeshConfig) -> Mesh:
                 group = dist.new_group(ranks)  # collective: every rank creates every group
                 if rank in ranks:
                     groups[axis] = group
+    for k in range(shape[2]):
+        # Every data x space plane: the ranks of one disp index.
+        ranks = [i * strides[0] + j * strides[1] + k for i in range(shape[0]) for j in range(shape[1])]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            groups["volume"] = group
     return Mesh(cfg=cfg, index=index, groups=groups)
 
 

@@ -9,6 +9,7 @@ its flags and defaults), run as `python -m ganet_tpu_torch.train`:
         --crop_height 48 --crop_width 96 --max_disp 24 --device cpu
 
     python -m ganet_tpu_torch.train --mesh_data 4 --batchSize 8 ...
+    python -m ganet_tpu_torch.train --mesh_space 2 --mesh_data 2 --batchSize 4 ...
     torchrun --nproc_per_node 4 -m ganet_tpu_torch.train --distributed 1 \
         --mesh_data 4 --batchSize 8 ...
 
@@ -20,16 +21,21 @@ and the JAX package's (scan runs the plain versions, pallas the kernels).
 --compile_cache is accepted for the reference's command lines and does
 nothing: it sets XLA's compilation cache, which PyTorch does not have.
 
---mesh_data N trains data-parallel on N ranks of `torch.distributed`, the
-counterpart of one JAX process that owns N devices: this process is rank 0
-and starts the others on this host (`parallel/launch.py`), each on card
-rank % device count (--device cpu: on the CPU), joined by NCCL when every
-rank has a card of its own and by gloo otherwise.  --batchSize is the
-global batch, which N must divide.  With --distributed 1 this process is
-one rank of a world that is already running (`env://`, as `torchrun` sets
-it up), whose size must be N.  Rank 0 alone prints, logs and writes the
-checkpoints.  --mesh_space or --mesh_disp above 1 and --channel_tp 1 raise
-NotImplementedError: they are not ported.
+--mesh_data N --mesh_space S trains on N x S ranks of `torch.distributed`
+laid out as the mesh (N, S, 1), the counterpart of one JAX process that
+owns N x S devices: the batch is split over `data`, the image height over
+`space` (`train/trainer.py`).  This process is rank 0 and starts the
+others on this host (`parallel/launch.py`), each on card rank % device
+count (--device cpu: on the CPU), joined by NCCL when every rank has a
+card of its own and by gloo otherwise.  --batchSize is the global batch,
+which N must divide, and S must share --crop_height by the model's shape
+rule (`parallel.spatial.check_spatial_shape`); either fault exits before
+this host starts a rank.  With --distributed 1 this process is one rank of a
+world that is already running (`env://`, as `torchrun` sets it up), whose
+size must be N x S.  Rank 0 alone prints, logs and writes the
+checkpoints, which hold no trace of the mesh.  --mesh_disp above 1 and
+--channel_tp 1 raise NotImplementedError: channel tensor parallelism
+(ROADMAP queue 1 #8) is not ported.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from ganet_tpu_torch.config import (
     model_config,
 )
 from ganet_tpu_torch.parallel.launch import default_backend, join_world, launch
-from ganet_tpu_torch.train.trainer import Trainer, check_train_mesh
+from ganet_tpu_torch.train.trainer import Trainer, check_train_mesh, check_train_shape
 
 # The JAX package's --sga_impl values, as the port's `impl`.
 JAX_IMPLS = {"scan": "torch", "pallas": "kernel"}
@@ -77,10 +83,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="synthetic data: thin the ground truth to about this valid fraction")
     p.add_argument("--steps", type=int, default=0, help="steps per epoch cap")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="data-parallel ranks (this host starts them unless --distributed 1)")
-    p.add_argument("--mesh_space", type=int, default=1, help="mesh: not ported above 1")
-    p.add_argument("--mesh_disp", type=int, default=1, help="mesh: not ported above 1")
-    p.add_argument("--channel_tp", type=int, default=0, help="channel TP: not ported")
+                   help="ranks that split the batch (this host starts the mesh's ranks unless"
+                   " --distributed 1)")
+    p.add_argument("--mesh_space", type=int, default=1,
+                   help="ranks that split the image height (the cost volume's rows)")
+    p.add_argument("--mesh_disp", type=int, default=1,
+                   help="mesh: not ported above 1 (ROADMAP queue 1 #8)")
+    p.add_argument("--channel_tp", type=int, default=0,
+                   help="channel TP: not ported (ROADMAP queue 1 #8)")
     p.add_argument("--eval", type=int, default=0, help="validate after training")
     p.add_argument("--lr_decay_epoch", type=int, default=0)
     p.add_argument("--bf16", type=int, default=0, help="bfloat16 compute")
@@ -88,7 +98,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--remat", type=str, default="sga", choices=REMATS,
                    help="rematerialisation: recompute in backward to save activation memory")
     p.add_argument("--distributed", type=int, default=0,
-                   help="join a running world of --mesh_data ranks (env://, as torchrun sets it)")
+                   help="join a running world of --mesh_data x --mesh_space ranks (env://, as"
+                   " torchrun sets it)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches staged by the background input thread; 0 disables it")
     p.add_argument("--compile_cache", type=int, default=1,
@@ -149,19 +160,36 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
     )
 
 
+def check_flags(cfg: TrainConfig) -> None:
+    """Exit (SystemExit) for flags that no mesh can train: a mesh axis
+    below 1, a --batchSize that --mesh_data does not divide, a
+    --crop_height that --mesh_space cannot share."""
+    mesh = cfg.mesh
+    if min(mesh.data, mesh.space, mesh.disp) < 1:
+        raise SystemExit(f"--mesh_data {mesh.data} --mesh_space {mesh.space}: each must be at least 1")
+    if cfg.batch_size % mesh.data:
+        raise SystemExit(f"--batchSize {cfg.batch_size} must be divisible by --mesh_data {mesh.data}")
+    try:
+        check_train_shape(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
 def run(rank: int, world: int, args: argparse.Namespace) -> Trainer:
     """Train (and evaluate) the flags' configuration as rank `rank` of
     `world` (0 of 1 on one device); returns the closed trainer."""
     cfg = build_config(args)
     if world != cfg.mesh.num_devices:
-        raise ValueError(f"--mesh_data {cfg.mesh.data} needs a world of as many ranks, got {world}")
+        raise ValueError(f"--mesh_data {cfg.mesh.data} x --mesh_space {cfg.mesh.space} needs a"
+                         f" world of as many ranks, got {world}")
     # A rank of several takes the card that its launcher set as current.
     trainer = Trainer(cfg, device=args.device if world == 1 or args.device == "cpu" else None)
     if trainer.is_lead:
         print(
             f"model={cfg.model.name} max_disp={cfg.model.max_disp} "
             f"crop={cfg.data.crop_height}x{cfg.data.crop_width} batch={cfg.batch_size} "
-            f"remat={cfg.model.remat} mesh_data={cfg.mesh.data} device={trainer.device} "
+            f"remat={cfg.model.remat} mesh_data={cfg.mesh.data} mesh_space={cfg.mesh.space} "
+            f"device={trainer.device} "
             f"start_epoch={trainer.start_epoch}"
         )
     try:
@@ -179,9 +207,12 @@ def main(argv=None) -> Trainer:
     cfg = build_config(args)
     device = "cpu" if args.device == "cpu" else "cuda"
     if args.distributed:
+        # The world is running: each rank's Trainer raises ValueError for
+        # these faults once run() has checked the world's size.
         return join_world(run, (args,), device=device)
-    if cfg.mesh.data > 1:
-        n = cfg.mesh.data
+    check_flags(cfg)
+    n = cfg.mesh.num_devices
+    if n > 1:
         backend = default_backend(device, n)
         return launch(run, n, (args,), backend=backend, device=device, caller_rank=True)
     return run(0, 1, args)

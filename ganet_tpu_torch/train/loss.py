@@ -1,10 +1,11 @@
 """Training loss (counterpart of `ganet_tpu/train/loss.py`): masked
 smooth-L1 per head, weighted over the deep-supervision heads.
 
-In a data-parallel step each rank divides its sum by the valid pixels of
-the global batch (`valid_count` over the mesh's `data` group), so each
-rank's loss is its share of the global batch's loss and the ranks'
-gradients sum to its gradient.  A mean of the ranks' own means would
+In a step on a mesh each rank holds its slice of the batch and, with a
+`space` axis, its block of rows of the maps and targets; it divides its
+sum by the valid pixels of the global batch (`valid_count` over the
+mesh's `data` x `space` plane), so each rank's loss is its share of the
+global batch's loss and the ranks' gradients sum to its gradient.  A mean of the ranks' own means would
 weigh their pixels unequally whenever their valid counts differ (sparse
 ground truth, the zero-valid padded tail)."""
 

@@ -1,9 +1,10 @@
 """Evaluation metrics (counterpart of `ganet_tpu/train/metrics.py`): EPE,
 >1/2/3 px error rates and KITTI D1-all (error > 3 px and > 5 % of the
 ground truth), as masked means over the valid pixels.  With a process
-group, over the ranks' global batch: each numerator and the counts are
-summed over the group in one all-reduce, so that every rank returns what
-JAX's replicated outputs hold."""
+group, over the ranks' global batch (their slices of it, or their blocks
+of rows on a `space` axis): each numerator and the counts are summed over
+the group in one all-reduce, so that every rank returns what JAX's
+replicated outputs hold."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Train state: the model (parameters and BatchNorm statistics), Adam and
 its learning-rate schedule (counterpart of `ganet_tpu/train/state.py`),
-and the process group of a data-parallel run."""
+and the process groups of a run on a mesh."""
 
 from __future__ import annotations
 
@@ -40,14 +40,17 @@ def make_optimizer(
 class TrainState:
     """What a train step updates in place: the model's parameters and
     running statistics, the optimiser's moments, the schedule, the step;
-    and `group`, the mesh's `data` axis that the step sums over (None on
-    one device)."""
+    `group`, the mesh's `data` x `space` plane that the step sums the
+    loss, the metrics and the gradients over (None on one device); and
+    `space_group`, the `space` line whose ranks share the image's rows
+    (None when `space` is 1)."""
 
     model: GANet
     optimizer: torch.optim.Adam
     scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
     group: Optional[dist.ProcessGroup] = None
+    space_group: Optional[dist.ProcessGroup] = None
 
     @property
     def lr(self) -> float:

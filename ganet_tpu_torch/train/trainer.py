@@ -11,27 +11,40 @@ trick of the JAX trainer: the pair (flip(right), flip(left)) predicts the
 flipped right-view disparity, and both pairs run in one forward stacked
 along the batch, so BatchNorm statistics cover both.
 
-Data parallelism (a mesh `MeshConfig(data=N)`, run as N ranks of
-`torch.distributed`, one device each) computes what one device computes
-on the global batch, as the JAX step does under GSPMD: train-mode
-BatchNorm takes its moments over the global batch (`sync_batch_norm`),
-the loss divides by the global batch's valid pixels, the gradients are
-summed over the ranks after backward (one flat buffer; summing from
-autograd hooks, as DDP's reducer does, would interleave with the
-BatchNorm all-reduces that backward issues on the same group, in an order
-that can differ between ranks), and every rank takes the same Adam update.
-The loss and the metrics a step returns are the global batch's.
+A mesh `MeshConfig(data=N, space=S)`, run as N x S ranks of
+`torch.distributed`, one device each, computes what one device computes
+on the global batch, as the JAX step `make_train_step(cfg, mesh)` does
+under GSPMD.  The `data` axis splits the batch (each rank of a `space`
+line reads the same slice); the `space` axis splits the image height:
+each rank runs the 2D part on the whole image and the aggregation on its
+block of rows (`models/ganet.py`), and holds its rows of the heads'
+maps against its rows of the targets (`row_block`).  Train-mode
+BatchNorm takes its moments over the global tensor (`sync_batch_norm`:
+the 2D part's over `data`, the aggregation's over `data` x `space`), the
+loss divides by the global batch's valid pixels, the gradients are
+summed over the `data` x `space` plane (`Mesh.volume_group`) after
+backward (one flat buffer; summing from autograd hooks, as DDP's reducer
+does, would interleave with the collectives that backward issues, in an
+order that can differ between ranks), and every rank takes the same Adam
+update.  The loss and the metrics a step returns are the global batch's.
+The ranks' parameters stay the same bits.  The 2D part's running
+statistics are each rank's own: on the card cuDNN's default algorithms
+do not repeat bit for bit, so the ranks of a `space` line, each running
+that part whole, hold them equal up to float noise; a checkpoint holds
+rank 0's.
 
 `Trainer` trains from a `TrainConfig`: its datasets (files or synthetic)
 through `BatchIterator` (each rank reads its slice of the global batch),
 the epoch loop with JSONL rows (`MetricLogger`), a checkpoint after each
 epoch (`train/checkpoint.py`, keyed by the epoch), resume, and evaluation
 over the test set with a best-EPE checkpoint.  With a mesh, rank 0 alone
-logs and writes; every rank reads a checkpoint to resume.
+logs and writes; every rank reads a checkpoint to resume.  A checkpoint
+holds no trace of the mesh.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from typing import Callable, Dict, Mapping, Optional, Union
@@ -47,6 +60,7 @@ from ganet_tpu_torch.entry import Device, build_model, resolve_device
 from ganet_tpu_torch.models.layers import sync_batch_norm
 from ganet_tpu_torch.parallel.comm import all_reduce_, all_reduce_grads
 from ganet_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ganet_tpu_torch.parallel.spatial import check_spatial_shape, row_block
 from ganet_tpu_torch.train.checkpoint import latest_step, load_train_state, save_checkpoint
 from ganet_tpu_torch.train.loss import deep_supervision_loss
 from ganet_tpu_torch.train.metrics import disparity_metrics
@@ -54,24 +68,33 @@ from ganet_tpu_torch.train.state import TrainState, make_optimizer, model_digest
 from ganet_tpu_torch.utils.logging import MetricLogger
 
 BATCH_KEYS = ("left", "right", "disparity", "valid")
+# The keys of a batch that hold (B, H, W) targets, which a rank of a
+# `space` line takes its rows of.
+TARGET_KEYS = ("disparity", "valid", "disparity_right", "valid_right")
 
 Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
 
 def check_train_mesh(mesh: MeshConfig) -> None:
-    """Raise NotImplementedError for a mesh the port cannot train on: any
-    `space` or `disp` above 1."""
-    if mesh.space > 1 or mesh.disp > 1:
+    """Raise NotImplementedError for a mesh the port cannot train on: a
+    `disp` axis above 1."""
+    if mesh.disp > 1:
         raise NotImplementedError(
-            f"mesh {mesh}: the port trains data-parallel only (space = disp = 1); spatially"
-            " sharded training (ROADMAP queue 1 #7b) and channel tensor parallelism over the"
-            " disp axis (queue 1 #8) are not ported yet"
+            f"mesh {mesh}: the port trains over the data and space axes; channel tensor"
+            " parallelism over the disp axis (ROADMAP queue 1 #8) is not ported yet"
         )
 
 
+def check_train_shape(cfg: TrainConfig) -> None:
+    """Raise ValueError, naming the sizes that pass, unless `cfg.mesh.space`
+    ranks can share the crop height (`check_spatial_shape`).  The test set
+    is padded to the crop, so one check covers training and evaluation."""
+    check_spatial_shape(cfg.model, cfg.data.crop_height, cfg.mesh.space)
+
+
 def train_mesh(mesh: MeshConfig) -> Optional[Mesh]:
-    """This rank's place in the data-parallel mesh of `mesh`, built over the
-    initialised default group (a collective); None for one device."""
+    """This rank's place in the (data, space, 1) mesh of `mesh`, built over
+    the initialised default group (a collective); None for one device."""
     check_train_mesh(mesh)
     return make_mesh(mesh) if mesh.num_devices > 1 else None
 
@@ -86,26 +109,51 @@ def create_train_state(
     CUDA device unless given), with Adam and its schedule.
     `steps_per_epoch` (default `cfg.steps_per_epoch`) places the decay.
 
-    `mesh` is this rank's place in `cfg.mesh` (default `train_mesh(cfg.mesh)`).
-    With a `data` axis above 1 the model's BatchNorm and the state's steps
-    sum over its group, and the ranks' initial parameters and buffers are
-    compared bit for bit: a rank that built others raises."""
+    `mesh` is this rank's place in `cfg.mesh` (default `train_mesh(cfg.mesh)`),
+    whose model is this rank's part of the sharded model.  Its BatchNorm
+    takes two groups (`sync_batch_norm`): the 2D part's moments sum over
+    `data`, the aggregation's over `data` x `space`.  The state's steps sum
+    over `data` x `space` (`Mesh.volume_group`), and the ranks' initial
+    parameters and buffers are compared bit for bit over the whole mesh:
+    a rank that built others raises."""
     mesh = train_mesh(cfg.mesh) if mesh is None else mesh
-    group = None if mesh is None or mesh.size("data") == 1 else mesh.data_group
-    model = build_model(cfg.model, device, seed=cfg.seed).train()
-    sync_batch_norm(model, group)
-    if group is not None:
-        digests = [None] * dist.get_world_size(group)
-        dist.all_gather_object(digests, model_digest(model), group=group)
+    model = build_model(cfg.model, device, seed=cfg.seed, mesh=mesh).train()
+    group = space = None
+    if mesh is not None:
+        sync_batch_norm(model, mesh.data_group if mesh.size("data") > 1 else None)
+        group = mesh.volume_group
+        sync_batch_norm(model.cost_agg, group)
+        space = mesh.space_group if mesh.size("space") > 1 else None
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, model_digest(model))
         if len(set(digests)) > 1:
             raise RuntimeError(
-                f"the ranks of the data axis built different models from seed {cfg.seed}:"
+                f"the ranks of the mesh built different models from seed {cfg.seed}:"
                 f" state digests {digests}"
             )
     opt, sched = make_optimizer(
         cfg.optim, model.parameters(), steps_per_epoch or cfg.steps_per_epoch
     )
-    return TrainState(model=model, optimizer=opt, scheduler=sched, group=group)
+    return TrainState(model=model, optimizer=opt, scheduler=sched, group=group, space_group=space)
+
+
+def batch_digest(batch: Mapping[str, np.ndarray]) -> str:
+    """SHA-256 of a batch's keys and bytes: equal digests, equal batches."""
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode() + np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def _target_rows(b: Dict[str, torch.Tensor], space) -> Dict[str, torch.Tensor]:
+    """`b` with its targets cut to this rank's block of rows along the
+    `space` group (the rows of the model's outputs); the images stay
+    whole.  Under `left_right` the right view's targets are flipped along
+    W only, so their block is the same rows."""
+    if space is None:
+        return b
+    a, c = row_block(b["left"].shape[1], space)
+    return {k: v[:, a:c] if k in TARGET_KEYS else v for k, v in b.items()}
 
 
 def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -120,14 +168,25 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str,
     numpy arrays or tensors.  Returns the loss and the final head's metrics
     as device tensors (no synchronisation), and "lr", the learning rate of
     this update, as a float.  With `state.group` the batch is this rank's
-    slice of the global batch, and the loss and the metrics are the global
-    batch's.
+    slice of the global batch (its `data` index's; the ranks of a `space`
+    line pass the same whole images), and the loss and the metrics are the
+    global batch's.
+
+    Why the gradients' sum over `data` x `space` is the global batch's:
+    the global loss is the sum of the ranks' losses, each divided by the
+    global valid count.  An aggregation parameter's gradient on a rank
+    covers that rank's rows.  The 2D part runs whole on every rank of a
+    `space` line, but a rank's loss reaches it only through that rank's
+    rows of the cost volume and the guidance, so the line's sum is the
+    gradient through every row; the sum over `data` is that of the data
+    slices, as BatchNorm's all-reduce backward on the `data` group sums
+    the cotangents of the moments that the slices share.
     """
     left_right = cfg.data.left_right
 
     def train_step(state: TrainState, batch: Batch) -> Dict[str, object]:
         model, group = state.model, state.group
-        b = _to_device(batch, next(model.parameters()).device)
+        b = _target_rows(_to_device(batch, next(model.parameters()).device), state.space_group)
         model.train()
         left, right = b["left"], b["right"]
         if left_right:
@@ -170,11 +229,12 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str,
 def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """`eval_step(state, batch)`: the eval-mode forward (running BatchNorm
     statistics, final head only) and its metrics, as device tensors; with
-    `state.group`, on this rank's slice and over the global batch."""
+    `state.group`, on this rank's slice (and block of rows) and over the
+    global batch."""
 
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
-        b = _to_device(batch, next(model.parameters()).device)
+        b = _target_rows(_to_device(batch, next(model.parameters()).device), state.space_group)
         model.eval()
         with torch.no_grad():
             disp = model(b["left"], b["right"])
@@ -185,10 +245,13 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str, 
 
 class Trainer:
     """The training run of a `TrainConfig` on one device (the CUDA device
-    unless `device` names another), or on this rank's device of a
-    data-parallel mesh (`cfg.mesh.data` ranks, every one of which builds a
+    unless `device` names another), or on this rank's device of a mesh
+    (`cfg.mesh.data` x `cfg.mesh.space` ranks, every one of which builds a
     `Trainer`; `mesh` defaults to `train_mesh(cfg.mesh)`), with the JAX
-    `Trainer`'s methods and their semantics.
+    `Trainer`'s methods and their semantics.  The ranks of a `space` line
+    read the same slice of each global batch, crops included (checked at
+    the first step); a crop height that `space` cannot share raises
+    ValueError here, before any step.
 
     A `save_path` that already holds a checkpoint, or `cfg.resume`, restores
     the newest one: `start_epoch` becomes its epoch + 1 and nothing else is
@@ -201,6 +264,7 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, device: Device = None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        check_train_shape(cfg)
         self.mesh = train_mesh(cfg.mesh) if mesh is None else mesh
         # This rank's slice of each global batch: its index along `data`.
         self.data_index, self.data_size = (
@@ -301,6 +365,20 @@ class Trainer:
         if self.logger is not None:
             self.logger.log(step, metrics, prefix=prefix)
 
+    def _check_same_batch(self, batch: Mapping[str, np.ndarray]) -> None:
+        """Raise unless the ranks of this rank's `space` line hold the same
+        batch: one all-gather of its digest over the line."""
+        group = self.state.space_group
+        if group is None:
+            return
+        digests = [None] * dist.get_world_size(group)
+        dist.all_gather_object(digests, batch_digest(batch), group=group)
+        if len(set(digests)) > 1:
+            raise RuntimeError(
+                f"the ranks of a space line read different batches (digests {digests}): they"
+                " must share their data index's slice, crops included"
+            )
+
     # -- loops ------------------------------------------------------------
     def fit(self) -> TrainState:
         """Train from `start_epoch` to `cfg.num_epochs`, at most
@@ -308,14 +386,17 @@ class Trainer:
         first step and every `cfg.log_every` steps (the only places that
         wait for the device), and saving after each epoch."""
         cfg = self.cfg
-        step = self.state.step
+        step = first = self.state.step
         for epoch in range(self.start_epoch, cfg.num_epochs):
             it = iter(self.train_iter)
             try:
                 for i, batch in enumerate(it):
                     if cfg.steps_per_epoch and i >= cfg.steps_per_epoch:
                         break
-                    metrics = self.train_step(self.state, {k: batch[k] for k in self.train_keys})
+                    batch = {k: batch[k] for k in self.train_keys}
+                    if step == first:
+                        self._check_same_batch(batch)
+                    metrics = self.train_step(self.state, batch)
                     step += 1
                     if step % cfg.log_every == 0 or i == 0:
                         # "lr" is the learning rate of the update just made.

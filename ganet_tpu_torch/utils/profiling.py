@@ -69,10 +69,11 @@ KERNELS = (("sga_fwd", "sga_sweep_kernel"), ("lga_fwd", "lga_kernel"),
            ("sga_fwd_seeded", "sga_sweep_seeded_kernel"),
            ("sga_bwd_seeded", "sga_sweep_bwd_seeded_kernel"), ("lga3d_fwd", "lga3d_kernel"))
 # The kernels whose launches `recording_shapes` records, by count name,
-# with the index of the wrapper's radius argument (the LGA kernels).  K5,
-# the seeded sweep of the sharded SGA wavefront, is recorded by the whole
-# block it sweeps a window of.
-RECORDED = {"sga_fwd": None, "lga_fwd": 2, "sga_bwd": None, "lga_bwd": 3, "sga_fwd_seeded": None}
+# with the index of the wrapper's radius argument (the LGA kernels).  K5
+# and K6, the seeded sweep of the sharded SGA wavefront and its gradient,
+# are recorded by the whole block they sweep a window of.
+RECORDED = {"sga_fwd": None, "lga_fwd": 2, "sga_bwd": None, "lga_bwd": 3, "sga_fwd_seeded": None,
+            "sga_bwd_seeded": None}
 
 
 def _module(attr: str):
@@ -99,7 +100,7 @@ def read_launches() -> Dict[str, int]:
 @contextlib.contextmanager
 def recording_shapes(seen):
     """Count in `seen` (a Counter) every launch of the kernels in
-    `RECORDED` (K1, K2, K3, K4 and K5) in the body by kernel, volume shape,
+    `RECORDED` (K1-K6) in the body by kernel, volume shape,
     dtype (and the LGA kernels' radius).  Each wrapper counts its launches
     on its module's name, which the recorders hold meanwhile; the counts go
     back to the wrappers after."""

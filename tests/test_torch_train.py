@@ -337,7 +337,7 @@ def test_train_step_matches_jax(small_variables, left_right):
 
 def test_train_and_eval_steps_run_and_learn():
     """A few Adam steps on one fixed batch lower the loss; the eval step is
-    the eval-mode forward's metrics; a mesh sharded over `space` is
+    the eval-mode forward's metrics; a mesh sharded over `disp` is
     refused, and a `data` axis needs the ranks of a running world
     (tests/test_torch_ddp.py trains on one)."""
     cfg = C.TrainConfig(model=C.ganet_small(D),
@@ -356,6 +356,6 @@ def test_train_and_eval_steps_run_and_learn():
     for k in want:
         assert metrics[k].item() == pytest.approx(want[k].item(), rel=1e-6), k
     with pytest.raises(NotImplementedError, match="queue 1"):
-        create_train_state(dataclasses.replace(cfg, mesh=C.MeshConfig(space=2)), device="cpu")
+        create_train_state(dataclasses.replace(cfg, mesh=C.MeshConfig(disp=2)), device="cpu")
     with pytest.raises(RuntimeError, match="torch.distributed"):
         create_train_state(dataclasses.replace(cfg, mesh=C.MeshConfig(data=2)), device="cpu")

@@ -17,6 +17,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import runpy
 import socket
 import sys
@@ -26,6 +27,7 @@ import torch
 
 import train as j_train
 import ganet_tpu_torch.predict as t_predict
+from ganet_tpu_torch import config as C
 from ganet_tpu_torch.train import build_config, main, parse_args
 from ganet_tpu_torch.train.checkpoint import load_inference_state
 from tests.torch_parity import two_torch_threads  # noqa: F401
@@ -50,6 +52,7 @@ ARGVS = {
     "ganet11_pallas": ["--model", "GANet11", "--sga_impl", "pallas", "--compile_cache", "0"],
     "scan": ["--sga_impl", "scan"],
     "mesh_data": ["--mesh_data", "2", "--batchSize", "4"],
+    "mesh_space": ["--mesh_space", "2", "--mesh_data", "2", "--batchSize", "4"],
     "distributed": ["--distributed", "1", "--mesh_data", "4", "--batchSize", "8"],
 }
 
@@ -75,12 +78,29 @@ def test_flags_and_defaults_match_train_py():
     assert mine["remat"] == "sga" and mine["batchSize"] == 2
 
 
-@pytest.mark.parametrize("argv", [["--mesh_space", "2"], ["--mesh_disp", "2"], ["--channel_tp", "1"]],
+@pytest.mark.parametrize("argv", [["--mesh_space", "2", "--mesh_disp", "2"], ["--mesh_disp", "2"],
+                                  ["--channel_tp", "1"]],
                          ids=lambda a: a[0][2:])
 def test_unported_flags_raise(argv):
     j_train.build_config(j_train.parse_args(argv))  # the reference takes them
     with pytest.raises(NotImplementedError, match="queue 1"):
         build_config(parse_args(argv))
+
+
+@pytest.mark.parametrize("argv, words", [
+    (["--mesh_space", "4"], "space 4 cannot share a height of 240"),
+    (["--mesh_space", "2", "--crop_height", "264"], "space 2 cannot share a height of 264"),
+    (["--mesh_data", "2", "--batchSize", "3"], "--batchSize 3 must be divisible by --mesh_data 2"),
+], ids=["space4_at_240", "space2_at_264", "batch"])
+def test_flags_no_mesh_can_train_exit_before_any_rank(argv, words, monkeypatch):
+    """GANet_deep's shape rule at the reference crop (H/3 = 80 rows in
+    blocks of a multiple of 8: space 2 fits, 4 does not), and a batch that
+    --mesh_data does not divide: SystemExit before a rank starts."""
+    import ganet_tpu_torch.train.cli as cli
+
+    monkeypatch.setattr(cli, "launch", lambda *a, **k: pytest.fail("a rank was started"))
+    with pytest.raises(SystemExit, match=re.escape(words)):
+        main(argv + ["--device", "cpu"])
 
 
 SMALL = ["--model", "GANet_small", "--synthetic_data", "1", "--crop_height", "48",
@@ -169,3 +189,25 @@ def test_runs_as_a_module(monkeypatch):
         runpy.run_module("ganet_tpu_torch.train", run_name="__main__", alter_sys=True)
     assert exit_.value.code == 0
     assert "--remat" in out.getvalue() and "--device" in out.getvalue()
+
+
+def test_trains_over_space_and_predicts_on_one_device(tmp_path):
+    """--mesh_space 2: 2 ranks share each image's rows (this process rank
+    0), train 2 steps and evaluate; the checkpoint holds no trace of the
+    mesh, and the predict CLI reads it on one device."""
+    save = str(tmp_path / "ckpt")
+    argv = SMALL + ["--max_disp", "12", "--batchSize", "2", "--steps", "2", "--nEpochs", "1",
+                    "--log_every", "1", "--eval", "1", "--save_path", save, "--device", "cpu"]
+    trainer = main(argv + ["--mesh_space", "2"])
+    assert trainer.mesh.cfg == C.MeshConfig(space=2) and trainer.state.step == 2
+    assert (trainer.data_index, trainer.data_size) == (0, 1)
+    assert _rows(save) == [("epoch0", 1), ("epoch0", 2), ("val", 16)]
+    assert sorted(os.listdir(save)) == ["0", "best", "best_epe.json", "train.jsonl"]
+    final = {k: v.clone() for k, v in trainer.state.model.state_dict().items()}
+    weights = load_inference_state(save)
+    assert sorted(weights) == sorted(final)
+    for k, v in weights.items():
+        assert torch.equal(v, final[k]), k
+    written = t_predict.main(SMALL + ["--max_disp", "12", "--resume", save, "--save_path",
+                                      str(tmp_path / "out"), "--device", "cpu"])
+    assert len(written) == 4 and all(os.path.exists(p) for p in written)
