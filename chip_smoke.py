@@ -136,7 +136,23 @@ CUDA toolkit.  Phases, each printing its lines:
      steps on phase 15's SceneFlow-shaped files, and the predict CLI on one
      device from its checkpoint; (d) `python -m ganet_tpu_torch.dryrun 4`
      (mesh (2, 2, 1)); then K1-K6 against their plain versions at every
-     shape the ranks launched them at.
+     shape the ranks launched them at;
+ 19. disparity-sharded inference and training on 2 ranks over `disp`
+     that share the card over gloo: (a) GANet_deep's eval forward at
+     576x960, max_disp 192, batch 1, the gathered f32 disparity (TF32 off)
+     within 2e-2 px of one device and bf16 within 1.5x one device's bf16
+     error, each rank's launches (one device's: every rank sweeps and
+     refines the whole D), its 3D convolutions' depths (at most its 32
+     bins and a halo of 2), bf16 forward time and peak memory; (b) its
+     training at 240x528, global batch 2, remat sga: one f32 step against
+     one device under phase 18's gates, the ranks' parameters the same
+     bits, each rank's launches a step, bf16 step time, all-reduce time
+     and peak memory; (c) `python -m ganet_tpu_torch.train --mesh_disp 2`
+     for 2 steps from phase 15's files, its checkpoint read by the
+     predict CLI on one device; (d) `python -m ganet_tpu_torch.dryrun 8`
+     (mesh (2, 2, 2), GANet_small: D halos, H halos and their corners,
+     the wavefront, BatchNorm over the whole mesh); (e) K1-K6 against
+     their plain versions at every shape the ranks launched them at.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -2311,33 +2327,31 @@ def sharded_forward_launches(cfg, W: int) -> dict:
             "lga_fwd": 2 * cfg.lga_repeats}
 
 
-def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
-    """H-sharded inference: GANet_deep at SP_FRAME on SP_RANKS ranks over
-    `space` against one device in this process, float32 and bfloat16, the
-    ranks' launches, times and peak memory; the predict CLI with --space 2
-    and --space 2 --data 2 against the one-device CLI; then K1, K5 and K2
-    held at every shape the ranks launched them at.  `device` "cpu"
-    rehearses the phase's control flow on the plain versions (no times, no
-    kernels to hold)."""
-    import os
-    import tempfile
+def sharded_forward_checks(torch, smi, tag: str, mesh: tuple, seed: int, want: dict,
+                           device: str) -> "Counter":
+    """(a)-(d) of a sharded eval forward of GANet_deep at SP_FRAME, batch 1,
+    on the ranks of `mesh` (data, space, disp), which share the card over
+    gloo, against one device in this process (the same seeded init 0):
+    (a) the f32 disparity (TF32 off) within SP_F32_TOL px, (b) bf16 within
+    SP_BF16_FACTOR times one device's bf16 error, (c) each rank's launches
+    (`want`), every rank holding the same whole disparity, and every 3D
+    convolution's input depth at most a rank's block of bins and a halo of
+    2, (d) each rank's bf16 forward time and peak memory.  Returns the
+    shapes the ranks launched K1, K5 and K2 at."""
     from collections import Counter
-
-    import numpy as np
+    import tempfile
 
     from ganet_tpu_torch import ganet_deep
-    from ganet_tpu_torch import predict as predict_cli
-    from ganet_tpu_torch.data import png
     from ganet_tpu_torch.entry import build_model, predict
     from ganet_tpu_torch.parallel import spatial_cases as K
     from ganet_tpu_torch.parallel.launch import launch
-    from ganet_tpu_torch.train.checkpoint import save_checkpoint
-    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
     cuda = device == "cuda"
     (H, W), D = SP_FRAME, SP_MAX_DISP
-    model = dict(kind="model", model="GANet_deep", mesh=(1, SP_RANKS), batch=1, size=(H, W),
-                 max_disp=D, seed=17)
+    ranks = mesh[0] * mesh[1] * mesh[2]
+    label = ", ".join(f"{a} {n}" for a, n in zip(("data", "space", "disp"), mesh) if n > 1)
+    model = dict(kind="model", model="GANet_deep", mesh=mesh, batch=1, size=(H, W), max_disp=D,
+                 seed=seed)
     cases = [dict(model, name="f32", dtype="float32"),
              dict(model, name="bf16", dtype="bfloat16", reps=SP_TIMED)]
     shapes = Counter()
@@ -2345,31 +2359,30 @@ def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        launch(K.run_cases, SP_RANKS, (cases, out_dir, device), backend="gloo", device=device)
-        log(f"[17] {SP_RANKS} ranks on one card (gloo): GANet_deep {H}x{W} D={D} batch 1 over space "
-            f"{SP_RANKS}, f32 and bf16 forwards, in {time.perf_counter() - t0:.1f} s")
-        results = {c["name"]: K.load(c, out_dir, SP_RANKS) for c in cases}
+        launch(K.run_cases, ranks, (cases, out_dir, device), backend="gloo", device=device)
+        log(f"{tag} {ranks} ranks on one card (gloo): GANet_deep {H}x{W} D={D} batch 1 over {label}, "
+            f"f32 and bf16 forwards, in {time.perf_counter() - t0:.1f} s")
+        results = {c["name"]: K.load(c, out_dir, ranks) for c in cases}
 
-    # (c) launches of each rank's forward.
-    want = sharded_forward_launches(ganet_deep(max_disp=D), W)
+    # (c) launches of each rank's forward, and its convolutions' depths.
+    depth_bound = ganet_deep(max_disp=D).disp_channels // mesh[2] + 2
     for case in cases:
-        ranks = results[case["name"]]
-        for rank, res in enumerate(ranks):
+        res_ranks = results[case["name"]]
+        for rank, res in enumerate(res_ranks):
             full = {k: want.get(k, 0) for k in res["launches"]}
             if cuda and res["launches"] != full:  # the plain versions count nothing
-                raise AssertionError(f"[17] {case['name']} rank {rank}: launched {res['launches']}, "
+                raise AssertionError(f"{tag} {case['name']} rank {rank}: launched {res['launches']}, "
                                      f"expected {full}")
+            if not res["depths"] or max(res["depths"]) > depth_bound:
+                raise AssertionError(f"{tag} {case['name']} rank {rank}: 3D convolutions at depths "
+                                     f"{sorted(set(res['depths']))}, bound {depth_bound}")
             shapes.update(res["shapes"])
-        if not all(torch.equal(r["out"], ranks[0]["out"]) for r in ranks):
-            raise AssertionError(f"[17] {case['name']}: the ranks returned other disparities")
-        log(f"  [17] (c) {case['name']}: launches of each rank's forward {want} (K3, K4, K6, K7 none); "
-            f"every rank holds the same whole disparity ok")
-    for e in entries:
-        if e["name"] in want:
-            log(f"  [17] {e['name']}: {want[e['name']]} launches a rank, "
-                f"{SP_RANKS * want[e['name']]} over the {SP_RANKS} ranks")
-        if e["name"] == "sga_fwd_seeded":  # the model path's launches, as phase 12 sums them
-            e["launches"] = SP_RANKS * want["sga_fwd_seeded"]
+        if not all(torch.equal(r["out"], res_ranks[0]["out"]) for r in res_ranks):
+            raise AssertionError(f"{tag} {case['name']}: the ranks returned other disparities")
+        log(f"  {tag} (c) {case['name']}: launches of each rank's forward {want} (K3, K4, K6, K7 none); "
+            f"every rank holds the same whole disparity; the {len(res_ranks[0]['depths'])} 3D "
+            f"convolutions of a rank at depths {sorted(set(res_ranks[0]['depths']))} (at most "
+            f"{depth_bound}) ok")
 
     # (a), (b) against one device in this process, the same weights (seeded init 0).
     left, right = K.model_inputs(cases[0])
@@ -2385,37 +2398,70 @@ def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
                 predict(one, left, right)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            log(f"[17] one device, this process, GANet_deep {H}x{W} D={D} bf16 batch 1: "
+            log(f"{tag} one device, this process, GANet_deep {H}x{W} D={D} bf16 batch 1: "
                 f"{min(times):.1f} ms (min of {SP_TIMED}; all {', '.join(f'{t:.1f}' for t in times)})")
         del one
     f32, bf16 = results["f32"][0]["out"], results["bf16"][0]["out"].float()
     diff = (f32 - ref["float32"]).abs()
     ok = bool(torch.isfinite(f32).all()) and tuple(f32.shape) == (1, H, W) and diff.max().item() <= SP_F32_TOL
-    log(f"[17] (a) f32 (TF32 off): max |sharded - one device| {diff.max().item():.3e} px (tol "
+    log(f"{tag} (a) f32 (TF32 off): max |sharded - one device| {diff.max().item():.3e} px (tol "
         f"{SP_F32_TOL:.0e}), mean {diff.mean().item():.3e} px, {int((diff > 0).sum())} of {diff.numel()} "
         f"pixels differ; range [{f32.min().item():.2f}, {f32.max().item():.2f}] {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("[17] the sharded f32 forward disagrees with one device")
+        raise AssertionError(f"{tag} the sharded f32 forward disagrees with one device")
     err_sh = (bf16 - ref["float32"]).abs().mean().item()
     err_one = (ref["bfloat16"] - ref["float32"]).abs().mean().item()
     ok = bool(torch.isfinite(bf16).all()) and err_sh <= SP_BF16_FACTOR * err_one
-    log(f"[17] (b) bf16: mean |sharded bf16 - one-device f32| {err_sh:.4f} px, mean |one-device bf16 - "
+    log(f"{tag} (b) bf16: mean |sharded bf16 - one-device f32| {err_sh:.4f} px, mean |one-device bf16 - "
         f"one-device f32| {err_one:.4f} px, factor {err_sh / max(err_one, 1e-30):.3f} (tol "
         f"{SP_BF16_FACTOR}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("[17] the sharded bf16 forward is further from f32 than one device's")
+        raise AssertionError(f"{tag} the sharded bf16 forward is further from f32 than one device's")
     del ref, f32, bf16, diff
 
     # (d) each rank's bf16 forward time and peak memory.
     if cuda:
         for rank, res in enumerate(results["bf16"]):
-            log(f"[17] (d) rank {rank}, GANet_deep {H}x{W} D={D} bf16 batch 1 over space {SP_RANKS}: "
+            log(f"{tag} (d) rank {rank}, GANet_deep {H}x{W} D={D} bf16 batch 1 over {label}: "
                 f"forward {min(res['times']):.1f} ms (host clock after a barrier to a synchronize, min "
                 f"of {len(res['times'])}; all {', '.join(f'{t:.1f}' for t in res['times'])}); peak "
-                f"memory {res['peak_gib']:.2f} GiB; {SP_RANKS} ranks time-slicing one card over gloo: "
+                f"memory {res['peak_gib']:.2f} GiB; {ranks} ranks time-slicing one card over gloo: "
                 f"not a multi-GPU time; card {smi}")
-        log(f"[17] (d) ranks' peak memory {[round(r['peak_gib'], 2) for r in results['f32']]} GiB in f32")
-    del results
+        log(f"{tag} (d) ranks' peak memory {[round(r['peak_gib'], 2) for r in results['f32']]} GiB in f32")
+    return shapes
+
+
+def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
+    """H-sharded inference: GANet_deep at SP_FRAME on SP_RANKS ranks over
+    `space` against one device in this process, float32 and bfloat16, the
+    ranks' launches, times and peak memory (`sharded_forward_checks`); the
+    predict CLI with --space 2 and --space 2 --data 2 against the
+    one-device CLI; then K1, K5 and K2 held at every shape the ranks
+    launched them at.  `device` "cpu" rehearses the phase's control flow
+    on the plain versions (no times, no kernels to hold)."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from ganet_tpu_torch import ganet_deep
+    from ganet_tpu_torch import predict as predict_cli
+    from ganet_tpu_torch.data import png
+    from ganet_tpu_torch.entry import build_model
+    from ganet_tpu_torch.train.checkpoint import save_checkpoint
+    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
+
+    cuda = device == "cuda"
+    D = SP_MAX_DISP
+    want = sharded_forward_launches(ganet_deep(max_disp=D), SP_FRAME[1])
+    shapes = sharded_forward_checks(torch, smi, "[17]", (1, SP_RANKS, 1), 17, want, device)
+    for e in entries:
+        if e["name"] in want:
+            log(f"  [17] {e['name']}: {want[e['name']]} launches a rank, "
+                f"{SP_RANKS * want[e['name']]} over the {SP_RANKS} ranks")
+        if e["name"] == "sga_fwd_seeded":  # the model path's launches, as phase 12 sums them
+            e["launches"] = SP_RANKS * want["sga_fwd_seeded"]
 
     # (e) the predict CLI on meshes against the one-device CLI, float32.
     (H0, W0), (CH, CW), n = SP_CLI_FRAME, SP_CLI_CROP, SP_CLI_FRAMES
@@ -2508,14 +2554,16 @@ def ranks_agree(torch, ranks, params) -> tuple:
     return same, gap
 
 
-def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
-    """H-sharded training: (a) parity of ST_RANKS ranks over `space` with
-    one device on the same batch, (b) each rank's launches, step time and
-    peak memory, (c) the train CLI with --mesh_space from files and the
-    predict CLI on one device from its checkpoint, (d) the dryrun on 4
-    ranks; then K1-K6 held at every shape the ranks launched.  `device`
-    "cpu" rehearses the phase's control flow on the plain versions (no
-    times, no kernels to hold)."""
+def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want: dict,
+                        dryrun_n: int, device: str, shapes=None) -> None:
+    """Sharded training of GANet_deep at TRAIN_CROP, max_disp ST_MAX_DISP,
+    global batch 2, remat sga, on the ranks of `mesh` (data, space, disp),
+    which share the card over gloo: (a) parity of one f32 step with one
+    device on the same batch, (b) each rank's launches a step (`want`),
+    step time and peak memory, (c) the train CLI on the mesh from files
+    and the predict CLI on one device from its checkpoint, (d) the dryrun
+    on `dryrun_n` ranks; then K1-K6 held at every shape the ranks
+    launched, and at the `shapes` (a Counter) given."""
     import math
     import os
     import tempfile
@@ -2533,37 +2581,36 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
 
     (CH, CW), D = TRAIN_CROP, ST_MAX_DISP
     cuda = device == "cuda"
-    mesh = (1, ST_RANKS)
+    n_ranks = mesh[0] * mesh[1] * mesh[2]
+    axes = [(a, n) for a, n in zip(("data", "space", "disp"), mesh) if n > 1]
+    label = ", ".join(f"{a} {n}" for a, n in axes)
+    cli_flags = [w for a, n in axes for w in (f"--mesh_{a}", str(n))]
     deep = dict(kind="step", model="GANet_deep", size=(CH, CW), max_disp=D, batch=2, remat="sga",
                 mesh=mesh)
-    cases = [dict(deep, name="parity", dtype="float32", steps=1, seed=18),
-             dict(deep, name="timed", dtype="bfloat16", steps=2, reps=ST_TIMED, seed=18)]
-    shapes = Counter()
+    cases = [dict(deep, name="parity", dtype="float32", steps=1, seed=seed),
+             dict(deep, name="timed", dtype="bfloat16", steps=2, reps=ST_TIMED, seed=seed)]
+    shapes = Counter() if shapes is None else shapes
     if cuda:
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        launch(K.run_cases, ST_RANKS, (cases, out_dir, device), backend="gloo", device=device)
-        log(f"[18] {ST_RANKS} ranks over space on one card (gloo): GANet_deep {CH}x{CW} D={D} "
+        launch(K.run_cases, n_ranks, (cases, out_dir, device), backend="gloo", device=device)
+        log(f"{tag} {n_ranks} ranks over {label} on one card (gloo): GANet_deep {CH}x{CW} D={D} "
             f"global batch 2, remat sga, the f32 parity step and the bf16 steps in "
             f"{time.perf_counter() - t0:.1f} s")
-        results = {c["name"]: K.load(c, out_dir, ST_RANKS) for c in cases}
+        results = {c["name"]: K.load(c, out_dir, n_ranks) for c in cases}
 
     # (b) launches a step on every rank.
-    want = sharded_step_launches(ganet_deep(max_disp=D), CW, "sga")
     for case in cases:
         for rank, res in enumerate(results[case["name"]]):
             for launched in res["launches"]:
                 full = {k: want.get(k, 0) for k in launched}
                 if cuda and launched != full:  # the plain versions count nothing
-                    raise AssertionError(f"[18] {case['name']} rank {rank}: launched {launched} a "
+                    raise AssertionError(f"{tag} {case['name']} rank {rank}: launched {launched} a "
                                          f"step, expected {full}")
             shapes.update(res["shapes"])
-        log(f"  [18] (b) {case['name']} ({case['dtype']}): launches a step on each of the {ST_RANKS} "
+        log(f"  {tag} (b) {case['name']} ({case['dtype']}): launches a step on each of the {n_ranks} "
             f"ranks {want} (K7 none) ok")
-    for e in entries:
-        if e["name"] == "sga_bwd_seeded":  # K6's model path: a step's launches over the ranks
-            e["launches"] = ST_RANKS * want["sga_bwd_seeded"]
 
     # (a) parity against one step in this process on the same batch, run twice.
     ranks = results["parity"]
@@ -2593,42 +2640,42 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
                 f"elements ({g[4]:.3%}) the other way or not at all")
 
     self_noise = gaps(refs[1], refs[0])
-    log(f"[18] (a) one device's f32 step twice (its own noise): {line(self_noise)}")
+    log(f"{tag} (a) one device's f32 step twice (its own noise): {line(self_noise)}")
     got = ranks[0]
     g = gaps(got, refs[0])
     same, buffers = ranks_agree(torch, ranks, params)
     ok = (same and buffers <= DP_STATS_TOL and g[0] <= DP_LOSS_RTOL and g[1] <= DP_STATS_TOL and g[2] <= GRAD_TOL_ALL
           and g[3][0] <= GRAD_TOL_PARAM and g[5] > 0 and g[4] <= DP_FLIP_SHARE
           and math.isfinite(got["losses"][0]))
-    log(f"[18] (a) parity, GANet_deep {CH}x{CW} D={D} f32 (TF32 off) remat sga, {ST_RANKS} ranks "
-        f"over space vs one process, batch 2: loss {got['losses'][0]:.6f} vs "
+    log(f"{tag} (a) parity, GANet_deep {CH}x{CW} D={D} f32 (TF32 off) remat sga, {n_ranks} ranks "
+        f"over {label} vs one process, batch 2: loss {got['losses'][0]:.6f} vs "
         f"{refs[0]['losses'][0]:.6f}; {line(g)}; gates: loss {DP_LOSS_RTOL}, statistics "
         f"{DP_STATS_TOL}, gradients {GRAD_TOL_ALL} / {GRAD_TOL_PARAM}, update {DP_FLIP_SHARE:.0%}; "
         f"the ranks' parameters {'the same bits' if same else 'DIFFER'}, their running statistics "
         f"{buffers:.2e} apart (each rank's own 2D part) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("[18] the space-sharded step disagrees with the one-device step")
+        raise AssertionError(f"{tag} the sharded step disagrees with the one-device step")
     del refs, ranks, got
 
     # (b) per-rank figures of the timed case (bf16, remat sga).
     for rank, res in enumerate(results["timed"]):
         if not all(map(math.isfinite, res["losses"])):
-            raise AssertionError(f"[18] timed rank {rank}: losses {res['losses']}")
+            raise AssertionError(f"{tag} timed rank {rank}: losses {res['losses']}")
         if not cuda:
             continue
-        log(f"[18] (b) rank {rank}, GANet_deep {CH}x{CW} D={D} bf16 remat sga, global batch 2 over "
-            f"space {ST_RANKS}: step {min(res['step_ms']):.1f} ms (host clock after a barrier to a "
+        log(f"{tag} (b) rank {rank}, GANet_deep {CH}x{CW} D={D} bf16 remat sga, global batch 2 over "
+            f"{label}: step {min(res['step_ms']):.1f} ms (host clock after a barrier to a "
             f"synchronize, min of the last {len(res['step_ms'])} of {2 + len(res['step_ms'])}; all "
             f"{', '.join(f'{t:.1f}' for t in res['step_ms'])}); gradient all-reduce "
             f"{min(res['allreduce_ms']):.1f} ms; peak memory {res['peak_gib']:.2f} GiB; "
-            f"{ST_RANKS} ranks time-slicing one card over gloo: not a multi-GPU time; card {smi}")
+            f"{n_ranks} ranks time-slicing one card over gloo: not a multi-GPU time; card {smi}")
     if not ranks_agree(torch, results["timed"], params)[0]:
-        raise AssertionError("[18] the timed ranks' parameters differ")
+        raise AssertionError(f"{tag} the timed ranks' parameters differ")
     del results
 
-    # (c) the train CLI, --mesh_space 2, from phase 15's SceneFlow-shaped files,
+    # (c) the train CLI on the mesh from phase 15's SceneFlow-shaped files,
     # and the predict CLI on one device from its checkpoint.
-    rng = np.random.default_rng(18)
+    rng = np.random.default_rng(seed)
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "sceneflow")
         train_list, _ = write_sceneflow(root, "TRAIN", TRAIN_FRAMES, SCENEFLOW_FRAME, rng)
@@ -2643,8 +2690,8 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
                 ["--model", "GANet_deep", "--max_disp", str(D), "--bf16", "1", "--batchSize", "2",
                  "--crop_height", str(CH), "--crop_width", str(CW), "--data_path", root,
                  "--training_list", train_list, "--val_list", val_list, "--log_every", "1",
-                 "--save_path", save, "--mesh_space", str(ST_RANKS), "--nEpochs", "1",
-                 "--steps", str(ST_CLI_STEPS)] + dev)
+                 "--save_path", save, "--nEpochs", "1", "--steps", str(ST_CLI_STEPS)]
+                + cli_flags + dev)
             if cuda:
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t0
@@ -2655,19 +2702,19 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
         final = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
         weights = load_inference_state(save)
         ok = ((launches == full or not cuda) and trainer.cfg.model.remat == "sga"
-              and trainer.mesh.cfg.space == ST_RANKS
+              and (trainer.mesh.cfg.data, trainer.mesh.cfg.space, trainer.mesh.cfg.disp) == mesh
               and [r["step"] for r in rows] == list(range(1, ST_CLI_STEPS + 1))
               and all(math.isfinite(r["loss"]) for r in rows)
               and sorted(os.listdir(save)) == ["0", "train.jsonl"]
               and sorted(weights) == sorted(final)
               and all(torch.equal(weights[k].cpu(), v) for k, v in final.items()))
-        log(f"[18] (c) train CLI --mesh_space {ST_RANKS} (bf16, remat sga, batch 2, {ST_CLI_STEPS} "
+        log(f"{tag} (c) train CLI {' '.join(cli_flags)} (bf16, remat sga, batch 2, {ST_CLI_STEPS} "
             f"steps from {TRAIN_FRAMES} SceneFlow-shaped frames): {secs:.2f} s with the ranks' start; "
             f"rank 0 launched {launches} (expected {full}); rows "
             + "; ".join(f"step {r['step']} loss {r['loss']:.4f}" for r in rows)
             + f"; the checkpoint is rank 0's state bit for bit {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("[18] the --mesh_space CLI run did not train, log and save once")
+            raise AssertionError(f"{tag} the {' '.join(cli_flags)} CLI run did not train, log and save once")
         del trainer, final, weights
         one = os.path.join(root, "one.list")
         with open(one, "w") as f:
@@ -2677,29 +2724,73 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
                                     str(D), "--model", "GANet_deep", "--bf16", "1", "--save_path",
                                     os.path.join(tmp, "result")] + dev)
         ok = len(written) == 1 and os.path.getsize(written[0]) > 0
-        log(f"[18] (c) predict CLI on one device from the --mesh_space checkpoint: wrote "
+        log(f"{tag} (c) predict CLI on one device from the {' '.join(cli_flags)} checkpoint: wrote "
             f"{[os.path.basename(p) for p in written]} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("[18] the predict CLI did not read the --mesh_space checkpoint")
+            raise AssertionError(f"{tag} the predict CLI did not read the {' '.join(cli_flags)} checkpoint")
 
-    # (d) the dryrun, python -m ganet_tpu_torch.dryrun 4.
+    # (d) the dryrun, python -m ganet_tpu_torch.dryrun n.
+    from ganet_tpu_torch.dryrun import dryrun_mesh
+
+    dm = dryrun_mesh(dryrun_n)
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "ganet_tpu_torch.dryrun", "4"] + dev,
+    out = subprocess.run([sys.executable, "-m", "ganet_tpu_torch.dryrun", str(dryrun_n)] + dev,
                          capture_output=True, text=True, timeout=600,
                          cwd=os.path.dirname(os.path.abspath(__file__)))
     lines = out.stdout.strip().splitlines()
     ok = out.returncode == 0 and bool(lines) and lines[-1].startswith(
-        "dryrun_multichip ok: mesh={'data': 2, 'space': 2, 'disp': 1} ")
-    log(f"[18] (d) python -m ganet_tpu_torch.dryrun 4: {lines[-1] if lines else '(no output)'} "
+        f"dryrun_multichip ok: mesh={{'data': {dm.data}, 'space': {dm.space}, 'disp': {dm.disp}}} ")
+    log(f"{tag} (d) python -m ganet_tpu_torch.dryrun {dryrun_n}: {lines[-1] if lines else '(no output)'} "
         f"({time.perf_counter() - t0:.1f} s with its start) {'ok' if ok else 'FAIL'}")
     if not ok:
         print(out.stderr[-4000:], file=sys.stderr)
-        raise AssertionError("[18] the dryrun failed")
+        raise AssertionError(f"{tag} the dryrun failed")
 
     if cuda:
         torch.cuda.empty_cache()
-        log(f"[18] K1-K6 against their plain versions at the {len(shapes)} shapes the ranks launched")
-        hold_at_path_shapes(torch, gen, shapes, "[18]")
+        log(f"{tag} K1-K6 against their plain versions at the {len(shapes)} shapes the ranks launched")
+        hold_at_path_shapes(torch, gen, shapes, tag)
+
+
+def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
+    """H-sharded training on ST_RANKS ranks over `space`
+    (`sharded_step_checks`): (a) parity with one device on the same batch,
+    (b) each rank's launches, step time and peak memory, (c) the train CLI
+    with --mesh_space from files and the predict CLI on one device from
+    its checkpoint, (d) the dryrun on 4 ranks; then K1-K6 held at every
+    shape the ranks launched.  `device` "cpu" rehearses the phase's control
+    flow on the plain versions (no times, no kernels to hold)."""
+    from ganet_tpu_torch import ganet_deep
+
+    want = sharded_step_launches(ganet_deep(max_disp=ST_MAX_DISP), TRAIN_CROP[1], "sga")
+    for e in entries:
+        if e["name"] == "sga_bwd_seeded":  # K6's model path: a step's launches over the ranks
+            e["launches"] = ST_RANKS * want["sga_bwd_seeded"]
+    sharded_step_checks(torch, gen, smi, "[18]", (1, ST_RANKS, 1), 18, want, 4, device)
+
+
+# Phase 19: disparity-sharded inference and training of GANet_deep on
+# DS_RANKS ranks over `disp` that share the card, the train CLI with
+# --mesh_disp and the dryrun of 8 ranks over (2, 2, 2).
+DS_RANKS = 2
+
+
+def phase_disp(torch, gen, smi, device: str = "cuda") -> None:
+    """Disparity-sharded inference and training on DS_RANKS ranks over
+    `disp`: GANet_deep's eval forward at SP_FRAME against one device
+    (`sharded_forward_checks`: f32, bf16, each rank's launches, which are
+    one device's, since every rank of a `disp` line sweeps and refines the
+    whole D, and its 3D convolutions' depths, times and peak memory); then
+    its training (`sharded_step_checks`: one f32 step against one device,
+    the ranks' parameters the same bits, each rank's launches a step, step
+    time, all-reduce time and peak memory, the train CLI with --mesh_disp
+    from files and the predict CLI on one device from its checkpoint, the
+    dryrun on 8 ranks over (2, 2, 2)); K1-K6 held at every shape the ranks
+    launched them at.  `device` "cpu" rehearses the phase's control flow on
+    the plain versions (no times, no kernels to hold)."""
+    mesh = (1, 1, DS_RANKS)
+    shapes = sharded_forward_checks(torch, smi, "[19]", mesh, 19, FORWARD_LAUNCHES, device)
+    sharded_step_checks(torch, gen, smi, "[19]", mesh, 19, STEP_LAUNCHES["sga"], 8, device, shapes)
 
 
 def main() -> int:
@@ -2785,6 +2876,10 @@ def main() -> int:
         log(f"[18] H-sharded training on {ST_RANKS} ranks sharing the card, the train CLI with "
             f"--mesh_space and the dryrun ({time.perf_counter() - t0:.1f} s)")
         phase_spatial_train(torch, gen, smi, entries)
+    if want(19):
+        log(f"[19] disparity-sharded inference and training on {DS_RANKS} ranks sharing the card, the "
+            f"train CLI with --mesh_disp and the dryrun of 8 ({time.perf_counter() - t0:.1f} s)")
+        phase_disp(torch, gen, smi)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

@@ -13,8 +13,8 @@ model's `sga_impl` becomes `impl`:
 
 `ModelConfig.remat` (rematerialisation) is ported, with
 `torch.utils.checkpoint`; `channel_tp` (channel tensor parallelism) is
-not.  `TrainConfig.mesh` is kept; the port's trainer runs on one device
-and refuses a larger mesh.
+not.  `TrainConfig.mesh` is the (data, space, disp) mesh that the port's
+trainer runs on (`train/trainer.py`).
 """
 
 from __future__ import annotations

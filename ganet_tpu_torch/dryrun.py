@@ -6,10 +6,10 @@ a sharded predict from the trained state (the port's counterpart of
 
 The mesh follows the JAX rule: n a multiple of 8 puts 2 on `disp`; else
 an even n puts gcd(n / 2, 16) on `space` and the rest on `data`; else
-gcd(n, 16) on `space` when that is all of n, or n on `data`.  The port
-does not shard `disp` yet (ROADMAP queue 1 #8), so an n that the rule
-gives `disp` 2 raises NotImplementedError before any rank starts: the
-port never picks another mesh than JAX would.
+gcd(n, 16) on `space` when that is all of n, or n on `data`.  So n = 8
+runs (data, space, disp) = (2, 2, 2): the cost volume's 8 bins in blocks
+of 4 over `disp`, 24 of its rows over `space`, with D halos, H halos and
+their corners, the wavefront and BatchNorm over the whole mesh together.
 
 The run: GANet_small, max_disp 24, 48x96 synthetic pairs, global batch
 2 x data, the seeded init 0.  This process computes one step of the
@@ -95,11 +95,6 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     prints the JAX dryrun's ok line and returns its figures; raises on a
     failed check."""
     mesh = dryrun_mesh(n_devices)
-    if mesh.disp > 1:
-        raise NotImplementedError(
-            f"dryrun_multichip({n_devices}): the mesh rule gives {mesh}, and channel tensor"
-            " parallelism over the disp axis (ROADMAP queue 1 #8) is not ported yet"
-        )
     kind = resolve_device(device).type
     cfg = dryrun_config(mesh)
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)

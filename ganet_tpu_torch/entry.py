@@ -4,13 +4,15 @@
 Both run on the CUDA device unless the caller asks for the CPU with
 `device="cpu"`; with no card and no such request they raise.
 
-With a mesh (`parallel.mesh.inference_mesh`, every rank of the world
-calling both), the model is one rank of `make_predict_fn(cfg, mesh)`:
-`predict` gives each `data` line its share of the batch (the whole batch,
-replicated, when `data` does not divide it, as the JAX package's dispatch
-does), the `space` ranks of a line share its rows (`models/ganet.py`), and
-the output is joined over `space` along H and then over `data` along B, so
-that every rank returns the whole disparity.
+With a mesh (`parallel.mesh.inference_mesh`, or any `make_mesh`, every
+rank of the world calling both), the model is one rank of
+`make_predict_fn(cfg, mesh)`: `predict` gives each `data` line its share
+of the batch (the whole batch, replicated, when `data` does not divide
+it, as the JAX package's dispatch does), the `space` ranks of a line
+share its rows and the `disp` ranks its cost volume's bins
+(`models/ganet.py`), and the output, which every rank of a `disp` line
+holds alike, is joined over `space` along H and then over `data` along
+B, so that every rank returns the whole disparity.
 """
 
 from __future__ import annotations

@@ -21,12 +21,24 @@ change, so checkpoints of every policy are interchangeable.  The recompute
 runs inside `layers.recomputing()`, so train-mode BatchNorm updates its
 running statistics once a step.
 
-Spatial sharding (eval only): after `layers.shard_space(module, group)`
-every 3D conv, SGA block and head runs on this rank's block of H rows of
-the volumes, its blocks in rank order along the mesh's `space` group:
-halo convolutions and upsample (`parallel/spatial.py`), the SGA wavefront
-and the halo LGA (`ops.dispatch`); the final map is the rank's block of
-rows.  Softmax, the expectation and the eval BatchNorm are local.
+Spatial sharding: after `layers.shard_space(module, group)` every 3D
+conv, SGA block and head runs on this rank's block of H rows of the
+volumes, its blocks in rank order along the mesh's `space` group: halo
+convolutions and upsample (`parallel/spatial.py`), the SGA wavefront and
+the halo LGA (`ops.dispatch`); the maps are the rank's block of rows.
+Softmax, the expectation and the eval BatchNorm are local.
+
+Disparity sharding: after `layers.shard_disp(module, group)` every 3D
+conv runs on this rank's block of the disparity bins (D-halo
+convolutions), and the bins are gathered over the mesh's `disp` group
+around what couples them: an SGA block gathers its input's bins
+(`comm.gather_blocks`), sweeps the whole D, and takes its block back
+(`comm.take_block`) for its BatchNorm, refining conv and residual; a
+head runs its C -> 1 conv on the block and gathers the one-channel
+volume, and its upsample, softmax, LGA and expectation run on every bin
+on every rank of the line, as the JAX package keeps D local in
+`fullres_volume_sharding`.  The maps are then the same on every rank of
+a `disp` line.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ from ganet_tpu_torch.models.layers import (
 from ganet_tpu_torch.ops import dispatch
 from ganet_tpu_torch.ops.disparity import disparity_regression
 from ganet_tpu_torch.ops.normalize import at_least_f32, l1_normalize, normalize_weights
+from ganet_tpu_torch.parallel.comm import gather_blocks, take_block
 from ganet_tpu_torch.parallel.spatial import halo_conv_same, halo_trilinear_upsample
 
 
@@ -57,6 +70,7 @@ class SGABlock(nn.Module):
     """SGA + BatchNorm + ReLU + refining conv + residual ReLU."""
 
     space_group = None
+    disp_group = None
 
     def __init__(self, channels: int, cfg: ModelConfig):
         super().__init__()
@@ -77,7 +91,10 @@ class SGABlock(nn.Module):
         k = normalize_weights(g.view(B, 4, 5, C, H, W), self.cfg.sga_norm, dim=2)
         k = k.permute(0, 3, 1, 2, 4, 5).contiguous()  # (B, C, 4, 5, H, W)
         rem = x
+        # The sweeps couple every bin of a pixel: they run on the whole D.
+        x = gather_blocks(x, 2, self.disp_group)
         x = dispatch.sga_ncdhw(x.contiguous(), k.to(x.dtype), self.cfg.impl, self.space_group)
+        x = take_block(x, 2, self.disp_group)
         x = F.relu(batch_norm(x, self.bn))
         x = self.BasicConv_0(x)
         return F.relu(x + rem.to(x.dtype))
@@ -89,6 +106,7 @@ class DispHead(nn.Module):
     in float32, expectation."""
 
     space_group = None
+    disp_group = None
 
     def __init__(self, cfg: ModelConfig, channels: int):
         super().__init__()
@@ -98,7 +116,9 @@ class DispHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, C, D/3, H/3, W/3) -> (B, H, W)."""
         cfg = self.cfg
-        x = halo_conv_same(x, self.conv.weight, group=self.space_group)[:, 0]
+        x = halo_conv_same(x, self.conv.weight, group=self.space_group,
+                           disp_group=self.disp_group)[:, 0]
+        x = gather_blocks(x, 1, self.disp_group)
         D = cfg.max_disp
         H, W = x.shape[2] * 3, x.shape[3] * 3
         x = halo_trilinear_upsample(
@@ -112,6 +132,7 @@ class DispAggHead(nn.Module):
     renormalised expectation."""
 
     space_group = None
+    disp_group = None
 
     def __init__(self, cfg: ModelConfig, channels: int):
         super().__init__()
@@ -125,7 +146,8 @@ class DispAggHead(nn.Module):
         hd = torch_dtype(cfg.resolved_head_dtype)
         # C -> 1 conv, then the trilinear x3 upsample in the head dtype.
         group = self.space_group
-        x = halo_conv_same(x, self.conv.weight, group=group)[:, 0]
+        x = halo_conv_same(x, self.conv.weight, group=group, disp_group=self.disp_group)[:, 0]
+        x = gather_blocks(x, 1, self.disp_group)
         D = cfg.max_disp
         H, W = x.shape[2] * 3, x.shape[3] * 3
         x = halo_trilinear_upsample(x.to(hd), (D, H, W), group).contiguous()

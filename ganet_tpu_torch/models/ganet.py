@@ -24,9 +24,20 @@ group (`layers.shard_space`).  It returns this rank's block of rows of
 the disparity, in train mode of every head's; `entry.predict` joins the
 blocks, and the train step holds them against the targets' rows
 (`train/trainer.py`).  The image height must meet
-`parallel.spatial.check_spatial_shape`, checked on every call.  The batch
-is the caller's: the `data` axis splits it in `entry.predict` and in the
-trainer's batch iterator.
+`parallel.spatial.check_spatial_shape`, checked on every call.
+
+With a `disp` axis of more than one rank the model is one rank of the JAX
+package's `GANet(cfg, mesh)` with its conv phase sharded over disparity
+(`volume_sharding`): every rank of a `disp` line runs the same 2D part,
+builds its block of the cost volume's bins from the whole features
+(which pass through `comm.copy_in`, so that their gradient sums the
+blocks'), and runs the aggregation on its block over the `disp` group
+(`layers.shard_disp`): D-halo 3D convolutions, the bins gathered around
+the SGA sweeps and the heads (`models/aggregation.py`).  Every rank of a
+`disp` line returns the same maps.  max_disp must meet
+`parallel.disparity.check_disp_shape`, checked on every call before any
+collective.  The batch is the caller's: the `data` axis splits it in
+`entry.predict` and in the trainer's batch iterator.
 """
 
 from __future__ import annotations
@@ -38,8 +49,10 @@ from ganet_tpu_torch.config import ModelConfig
 from ganet_tpu_torch.models.aggregation import CostAggregation
 from ganet_tpu_torch.models.feature import FeatureNet
 from ganet_tpu_torch.models.guidance import GuidanceNet
-from ganet_tpu_torch.models.layers import BasicConv, shard_space, torch_dtype
+from ganet_tpu_torch.models.layers import BasicConv, shard_disp, shard_space, torch_dtype
 from ganet_tpu_torch.ops.cost_volume import build_cost_volume_ncdhw
+from ganet_tpu_torch.parallel.comm import copy_in
+from ganet_tpu_torch.parallel.disparity import check_disp_shape, disp_block
 from ganet_tpu_torch.parallel.spatial import check_spatial_shape, row_block, space_size
 
 
@@ -47,11 +60,6 @@ class GANet(nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
-        if mesh is not None and mesh.size("disp") > 1:
-            raise NotImplementedError(
-                f"mesh {mesh.cfg}: channel tensor parallelism over the disp axis (ROADMAP queue 1"
-                " #8) is not ported yet"
-            )
         self.mesh = mesh
         Cf = cfg.feature_channels
         self.feature = FeatureNet(cfg)
@@ -60,6 +68,7 @@ class GANet(nn.Module):
         self.guidance = GuidanceNet(cfg)
         self.cost_agg = CostAggregation(cfg)
         shard_space(self.cost_agg, None if mesh is None else mesh.space_group)
+        shard_disp(self.cost_agg, None if mesh is None else mesh.disp_group)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
         cfg = self.cfg
@@ -71,9 +80,12 @@ class GANet(nn.Module):
         B, H, W, _ = left.shape
         cfg.validate_image_shape(H, W)
         group = None if self.mesh is None else self.mesh.space_group
-        space = space_size(group)
+        bins = None if self.mesh is None else self.mesh.disp_group
+        space, disp = space_size(group), space_size(bins)
         if space > 1:
             check_spatial_shape(cfg, H, space)
+        if disp > 1:
+            check_disp_shape(cfg, disp)
         dtype = torch_dtype(cfg.compute_dtype)
         left = left.permute(0, 3, 1, 2).to(dtype)
         right = right.permute(0, 3, 1, 2).to(dtype)
@@ -91,5 +103,8 @@ class GANet(nn.Module):
                 "lg1": guidance["lg1"][:, :, 3 * a : 3 * b].contiguous(),
                 "lg2": guidance["lg2"][:, :, 3 * a : 3 * b].contiguous(),
             }
-        cv = build_cost_volume_ncdhw(f_left, f_right, cfg.disp_channels)
+        if disp > 1:
+            f_left, f_right = copy_in(f_left, bins), copy_in(f_right, bins)
+        cv = build_cost_volume_ncdhw(f_left, f_right, cfg.disp_channels,
+                                     *disp_block(cfg.disp_channels, bins))
         return self.cost_agg(cv, guidance)

@@ -15,9 +15,11 @@ weights times s in float32, then + t in the input's dtype, as its
 `FoldableBN`), elsewhere taken in float32 and rounded once, as flax's
 `BatchNorm`.
 
-With a `space` group (`shard_space`, the sharded model of inference), a
-BasicConv takes this rank's block of rows and exchanges the rows its
-padding needs with its neighbours (`parallel/spatial.py`).
+With a `space` group (`shard_space`, the sharded model), a BasicConv
+takes this rank's block of rows and exchanges the rows its padding needs
+with its neighbours (`parallel/spatial.py`); with a `disp` group
+(`shard_disp`) a 3D BasicConv takes this rank's block of disparity bins
+too, and exchanges bins likewise.
 
 Submodules are named `conv` and `bn`; containers keep the JAX package's
 child names (`BasicConv_0`, `Conv2x_1`, ...) so that the weight bridge maps
@@ -88,17 +90,19 @@ def sync_batch_norm(module: nn.Module, group) -> None:
     autograd engine's thread, reaches it too.
 
     A sharded model takes two groups (`train.trainer.create_train_state`):
-    the whole model the mesh's `data` group, then its `cost_agg` the
-    `data` x `space` plane (`Mesh.volume_group`).  The 2D part (`feature`,
-    `conv_x`, `conv_y`, `guidance`) runs on the whole image on every rank
-    of a `space` line, so its moments are already whole along H and are
-    summed over `data` only: a sum over `space` too would count each row
-    `space` times in the sums and in the count alike, the same moments
-    for a collective over a group `space` times as wide.  The
-    aggregation's volumes hold this rank's block of rows, so their
-    moments sum over both axes: over `data` alone each rank would
-    normalise by its own rows' moments.  This is the one place where the
-    sharded model does not take every BatchNorm over the mesh."""
+    the whole model the mesh's `data` group, then its `cost_agg` the whole
+    mesh (`Mesh.world_group`).  The 2D part (`feature`, `conv_x`,
+    `conv_y`, `guidance`) runs on the whole image on every rank of a
+    `space` x `disp` plane, so its moments are already whole along H and
+    are summed over `data` only: a sum over `space` or `disp` too would
+    count each row that many times in the sums and in the count alike, the
+    same moments for a collective over a wider group.  The aggregation's
+    volumes hold this rank's block of rows and, when `disp` > 1, its block
+    of disparity bins, so their moments sum over all three axes: over
+    `data` alone each rank would normalise by its own block's moments.
+    (While `disp` is 1 the whole mesh is the `data` x `space` plane,
+    `Mesh.volume_group`.)  This is the one place where the sharded model
+    does not take every BatchNorm over the mesh."""
     for m in module.modules():
         if isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.bn_group = group
@@ -148,13 +152,14 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
 
 def conv_same(
     x: torch.Tensor, conv: nn.Module, stride: int = 1, scale: torch.Tensor | None = None,
-    group=None,
+    group=None, disp_group=None,
 ) -> torch.Tensor:
     """`conv`'s weights applied with "SAME" padding in the input's dtype;
     with `scale`, each output channel's weights times it first, in float32.
     With a `space` group, x is this rank's block of rows and the H padding
-    comes from its neighbours (`parallel.spatial.halo_conv_same`)."""
-    return halo_conv_same(x, conv.weight, conv.bias, stride, scale, group)
+    comes from its neighbours (`parallel.spatial.halo_conv_same`); with a
+    `disp_group`, its block of D bins likewise."""
+    return halo_conv_same(x, conv.weight, conv.bias, stride, scale, group, disp_group)
 
 
 def shard_space(module: nn.Module, group) -> None:
@@ -168,12 +173,26 @@ def shard_space(module: nn.Module, group) -> None:
             m.space_group = group
 
 
+def shard_disp(module: nn.Module, group) -> None:
+    """Every layer in `module` that takes a `disp` group (BasicConv and
+    the aggregation's SGA blocks and heads) runs on this rank's block of
+    disparity bins of the volumes, exchanging halo bins over `group` (the
+    mesh's `disp` axis) and gathering the bins around the SGA sweeps and
+    the heads; None: on every bin.  Kept on each module, as
+    `shard_space`'s group."""
+    for m in module.modules():
+        if hasattr(m, "disp_group"):
+            m.disp_group = group
+
+
 class BasicConv(nn.Module):
     """Conv or stride-2 deconv (2D or 3D) + optional BatchNorm + optional
     ReLU; on this rank's block of rows when it has a `space_group`
-    (`shard_space`)."""
+    (`shard_space`), and of disparity bins when it has a `disp_group`
+    (`shard_disp`)."""
 
     space_group = None
+    disp_group = None
 
     def __init__(
         self,
@@ -202,19 +221,19 @@ class BasicConv(nn.Module):
         self.bn = bn_cls(features, eps=1e-5, momentum=0.1) if use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        group = self.space_group
+        group, bins = self.space_group, self.disp_group
         if self.deconv:
-            x = halo_conv_transpose(x, self.conv.weight, self.conv.bias, group)
+            x = halo_conv_transpose(x, self.conv.weight, self.conv.bias, group, bins)
         elif x.dim() == 5 and self.bn is not None and not self.bn.training:
             # An eval BatchNorm after a 3D conv is folded into the conv, as
             # the JAX package's FoldableBN does: weights times s in float32,
             # then + t in the input's dtype.
             s, t = bn_affine(self.bn)
-            x = conv_same(x, self.conv, self.stride, scale=s, group=group)
+            x = conv_same(x, self.conv, self.stride, scale=s, group=group, disp_group=bins)
             x = x + t.to(x.dtype).view(1, -1, 1, 1, 1)
             return F.relu(x) if self.relu else x
         else:
-            x = conv_same(x, self.conv, self.stride, group=group)
+            x = conv_same(x, self.conv, self.stride, group=group, disp_group=bins)
         if self.bn is not None:
             x = batch_norm(x, self.bn)
         if self.relu:

@@ -13,19 +13,26 @@ import torch
 
 
 def build_cost_volume_ncdhw(
-    left: torch.Tensor, right: torch.Tensor, num_disp: int
+    left: torch.Tensor, right: torch.Tensor, num_disp: int, start: int = 0,
+    stop: int | None = None,
 ) -> torch.Tensor:
-    """left, right (B, C, H, W) -> (B, 2C, D, H, W), the model's layout."""
+    """left, right (B, C, H, W) -> (B, 2C, D, H, W), the model's layout;
+    with `start`/`stop`, only the bins [start, stop) of the whole volume's
+    D = num_disp (a rank's block over the mesh's `disp` axis), which equal
+    that slice of the whole volume."""
     if left.ndim != 4 or left.shape != right.shape:
         raise ValueError(f"expected matching (B,C,H,W) features, got {left.shape}")
+    stop = num_disp if stop is None else stop
+    if not 0 <= start < stop <= num_disp:
+        raise ValueError(f"bins [{start}, {stop}) are not a block of {num_disp}")
     B, C, H, W = left.shape
-    cv = left.new_zeros((B, 2 * C, num_disp, H, W))
+    cv = left.new_zeros((B, 2 * C, stop - start, H, W))
     cv[:, :C] = left[:, :, None]
-    for d in range(num_disp):
+    for d in range(start, stop):
         if d == 0:
             cv[:, C:, 0] = right
         elif d < W:
-            cv[:, C:, d, :, d:] = right[:, :, :, : W - d]
+            cv[:, C:, d - start, :, d:] = right[:, :, :, : W - d]
     return cv
 
 

@@ -1,11 +1,12 @@
 """Process groups of the mesh and their collectives over
 `torch.distributed` (counterpart of `ganet_tpu/parallel/`): neighbour
 exchanges, gathers and sums, the spatially (H) sharded SGA wavefront and
-halo LGA, the halo convolutions and upsample of the H-sharded model, and a
-launcher of ranks on one host.  Data-parallel training uses the mesh's
-`data` axis (`train/trainer.py`); sharded inference both axes
-(`entry.py`).  Sharded training (BatchNorm over `space`, gradients
-through the halo ops) and channel tensor parallelism are not ported yet."""
+halo LGA, the halo convolutions and upsample of the H-sharded model, the blocks of
+disparity bins of the `disp` axis (`parallel/disparity.py`) and the
+boundary ops that gather them, and a launcher of ranks on one host.  The
+model predicts and trains on all three axes (`models/ganet.py`,
+`entry.py`, `train/trainer.py`); channel tensor parallelism is not
+ported yet."""
 
 from ganet_tpu_torch.parallel.mesh import Mesh, inference_mesh, make_mesh
 from ganet_tpu_torch.parallel.sharded_lga import sharded_lga

@@ -7,7 +7,10 @@ transfers of one step go in one `dist.batch_isend_irecv` call, which
 returns when every one of them is done.  `halo_exchange` brings the rows
 above and below a block, for the sharded LGA and the halo convolutions
 and upsample (`parallel/spatial.py`); `all_gather_cat` joins the ranks'
-blocks of an output.  A data-parallel step sums
+blocks of an output.  Three differentiable boundary ops join the part of
+the model that runs replicated on every rank of a `disp` line to the part
+that holds blocks of disparity bins (`gather_blocks`, `take_block`,
+`copy_in`).  A data-parallel step sums
 BatchNorm moments, valid-pixel counts, metrics and gradients over the
 `data` axis with `all_reduce_` (in place) and `all_reduce_sum`
 (differentiable).
@@ -42,6 +45,12 @@ def group_rank(group=None) -> Tuple[int, int]:
     if not dist.is_initialized():
         return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+def group_size(group) -> int:
+    """The number of ranks in `group`: 1 for no group, which the model's
+    layers take to mean "not sharded" (never the default world)."""
+    return 1 if group is None else group_rank(group)[1]
 
 
 def check_group(group=None) -> None:
@@ -144,6 +153,91 @@ def all_gather_cat(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(S)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim)
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """`all_gather_cat` of any float dtype: 2-byte floats travel as bytes,
+    which every backend moves (gloo refuses some types, int16 among
+    them)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return all_gather_cat(x.contiguous().view(torch.uint8), dim, group).view(x.dtype)
+    return all_gather_cat(x, dim, group)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.idx = group_rank(group)[0]
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # The output is replicated over the group, so its cotangent is the
+        # same on every rank: this rank's block of it is its input's.
+        return g.narrow(ctx.dim, ctx.idx * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group):
+        idx, S = group_rank(group)
+        if x.shape[dim] % S:
+            raise ValueError(f"{x.shape[dim]} elements along dim {dim} do not split into {S} blocks")
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // S
+        return x.narrow(dim, idx * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # Every rank's block of the cotangent, joined: the replicated input's
+        # whole cotangent, the same on every rank.
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # Each rank consumed the replicated input for its own blocks: the
+        # input's cotangent is the sum of the ranks' (2-byte floats summed
+        # in float32).
+        acc = g.float() if g.dtype in (torch.bfloat16, torch.float16) else g
+        return all_reduce_(acc.clone(memory_format=torch.contiguous_format), ctx.group).to(g.dtype), None
+
+
+def gather_blocks(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's block `x` along `dim` joined in the rank order of
+    `group`: a value replicated over the group.  Differentiable: the
+    backward gives each rank its block of the (replicated) cotangent.
+    `x` itself for no group or a group of one rank."""
+    if group_size(group) == 1:
+        return x
+    return _GatherBlocks.apply(x, dim, group)
+
+
+def take_block(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's block of `x`, a value replicated over `group`, split
+    evenly along `dim` in rank order.  Differentiable: the backward gathers
+    the blocks' cotangents, so that every rank holds the whole cotangent
+    of `x`.  `x` itself for no group or a group of one rank."""
+    if group_size(group) == 1:
+        return x
+    return _TakeBlock.apply(x, dim, group)
+
+
+def copy_in(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x`, a value replicated over `group` of which each rank consumes its
+    own part (the features that build its block of the cost volume).
+    Identity forward; the backward sums the cotangent over the group.
+    `x` itself for no group or a group of one rank."""
+    if group_size(group) == 1:
+        return x
+    return _CopyIn.apply(x, group)
 
 
 def _halo_swap(lo: torch.Tensor, hi: torch.Tensor, group):

@@ -11,8 +11,8 @@ Each case is a dict:
             one train-mode BatchNorm (`bn_train`) forward and backward;
             "trainer": a `Trainer` on the mesh, its first batch's digest
             and its check that a `space` line reads one batch;
-  mesh      (data, space) of a step or trainer case, data x space = N
-            (default (N, 1));
+  mesh      (data, space[, disp]) of a step or trainer case, whose
+            product is N (default (N, 1, 1));
   model     preset name ("GANet_small", "GANet_deep"), with
   size      (H, W), max_disp, dtype ("float32", "bfloat16", or "float64",
             which measures the float32 noise of the others), remat,
@@ -31,8 +31,8 @@ Each case is a dict:
 Every input is made from the case's seed with numpy, alike on every rank
 and in the reference.  Each rank takes its `data` index's slice of each
 global batch (index i of `data` D: batch rows [i B/D, (i+1) B/D), as
-`BatchIterator` slices them; the ranks of a `space` line pass the same
-whole images, and the train step takes their rows), and saves to
+`BatchIterator` slices them; the ranks of a `space` x `disp` plane pass
+the same whole images, and the train step takes their rows), and saves to
 `<out_dir>/<name>.<rank>.pt`: the losses, the last step's metrics, the
 state_dict after the steps (on the CPU), its digest, the last step's
 gradients, and on a CUDA device the launches of every kernel a step, the
@@ -66,8 +66,14 @@ from ganet_tpu_torch.train.trainer import (
 from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
 
-def train_config(case: dict, data: int = 1, space: int = 1) -> TrainConfig:
-    """The `TrainConfig` of a step case on the mesh (data, space, 1)."""
+def mesh_shape(case: dict, nprocs: int = 1) -> tuple:
+    """(data, space, disp) of a case: its "mesh", padded with 1s, or
+    (nprocs, 1, 1)."""
+    return (tuple(case.get("mesh", (nprocs,))) + (1, 1))[:3]
+
+
+def train_config(case: dict, data: int = 1, space: int = 1, disp: int = 1) -> TrainConfig:
+    """The `TrainConfig` of a step case on the mesh (data, space, disp)."""
     H, W = case["size"]
     model = model_config(case["model"], max_disp=case["max_disp"],
                          compute_dtype=case.get("dtype", "float32"), remat=case.get("remat", "none"))
@@ -76,7 +82,7 @@ def train_config(case: dict, data: int = 1, space: int = 1) -> TrainConfig:
         data=DataConfig(crop_height=H, crop_width=W, kind="synthetic",
                         left_right=case.get("left_right", False)),
         optim=OptimConfig(lr=case.get("lr", 1e-3)),
-        mesh=MeshConfig(data=data, space=space),
+        mesh=MeshConfig(data=data, space=space, disp=disp),
         batch_size=case["batch"],
         seed=case.get("seed", 0),
     )
@@ -137,10 +143,10 @@ def _bn_run(case: dict, rank: int, n: int, device, group) -> Dict[str, object]:
 
 
 def _step_run(case: dict, rank: int, mesh: tuple, device, keep_init: bool = False) -> Dict[str, object]:
-    data, space = mesh
-    cfg = train_config(case, data, space)
+    data, space, disp = mesh
+    cfg = train_config(case, data, space, disp)
     # This rank's slice of each global batch: its `data` index's.
-    i, n = rank // space, data
+    i, n = rank // (space * disp), data
     cuda = torch.device(device).type == "cuda"
     state = create_train_state(cfg, device, mesh=train_mesh(cfg.mesh))
     if cfg.model.compute_dtype == "float64":
@@ -190,7 +196,7 @@ def _step_run(case: dict, rank: int, mesh: tuple, device, keep_init: bool = Fals
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            all_reduce_grads(state.model.parameters(), state.group)
+            all_reduce_grads(state.model.parameters(), state.model.mesh.world_group)
             torch.cuda.synchronize()
             reduce_ms.append((time.perf_counter() - t0) * 1e3)
         result.update(step_ms=times, allreduce_ms=reduce_ms,
@@ -231,7 +237,7 @@ def run_cases(rank: int, nprocs: int, cases: Sequence[dict], out_dir: str, devic
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     for case in cases:
-        mesh = tuple(case.get("mesh", (nprocs, 1)))
+        mesh = mesh_shape(case, nprocs)
         if case["kind"] == "bn":
             result = _bn_run(case, rank, nprocs, device, group)
         elif case["kind"] == "trainer":
@@ -256,4 +262,4 @@ def reference(case: dict, device) -> Dict[str, object]:
     "init"."""
     if case["kind"] == "bn":
         return _bn_run(case, 0, 1, device, None)
-    return _step_run(dict(case, reps=0), 0, (1, 1), device, keep_init=True)
+    return _step_run(dict(case, reps=0), 0, (1, 1, 1), device, keep_init=True)

@@ -11,11 +11,17 @@ train step sums BatchNorm moments, losses, metrics and gradients over
 inference (`entry.predict`); the `space` axis the H-sharded model of
 inference (`models/ganet.py`): its halo convolutions and upsample
 (`parallel/spatial.py`), SGA wavefront and halo LGA
-(`parallel/sharded_sga.py`, `parallel/sharded_lga.py`).  The same
-blocks of rows train (`train/trainer.py`): then every sum over the
-volumes, their BatchNorm moments, the loss, the metrics and the
-gradients, runs over `volume_group`, the plane of `data` x `space` ranks
-that share a `disp` index.
+(`parallel/sharded_sga.py`, `parallel/sharded_lga.py`).  The `disp` axis
+splits the conv phase's disparity bins, as the JAX package's
+`volume_sharding` lays them out, `P("data", "disp", "space")`: each rank
+of a `disp` line holds one block of the bins of every volume from the
+cost volume to the heads' C -> 1 convs (`parallel/disparity.py`), and
+the line gathers the bins around each SGA sweep and each head.  The same
+blocks train (`train/trainer.py`): the loss and the metrics, which the
+heads compute replicated over `disp`, sum over `volume_group`, the plane
+of `data` x `space` ranks that share a `disp` index; the aggregation's
+BatchNorm moments and the gradients sum over the whole mesh
+(`world_group`).
 
 The JAX module's `batch_sharding`, `volume_sharding` and `constrain_*`
 helpers are GSPMD sharding annotations, which have no counterpart in
@@ -56,11 +62,22 @@ class Mesh:
         return self.groups["space"]
 
     @property
+    def disp_group(self) -> dist.ProcessGroup:
+        return self.groups["disp"]
+
+    @property
     def volume_group(self) -> dist.ProcessGroup:
         """The ranks that share this rank's `disp` index: the whole
-        `data` x `space` plane, over which a train step sums what the
-        blocks of the volumes hold (the world while `disp` is 1)."""
+        `data` x `space` plane, over which a train step sums the loss and
+        the metrics (the world while `disp` is 1)."""
         return self.groups["volume"]
+
+    @property
+    def world_group(self) -> dist.ProcessGroup:
+        """Every rank of the mesh, over which a train step sums what the
+        blocks of the volumes hold: the aggregation's BatchNorm moments
+        and the gradients."""
+        return self.groups["world"]
 
 
 def make_mesh(cfg: MeshConfig) -> Mesh:
@@ -92,6 +109,7 @@ def make_mesh(cfg: MeshConfig) -> Mesh:
         group = dist.new_group(ranks)
         if rank in ranks:
             groups["volume"] = group
+    groups["world"] = dist.group.WORLD
     return Mesh(cfg=cfg, index=index, groups=groups)
 
 

@@ -27,7 +27,18 @@ order, are the unsharded op's output:
                            haloed block's r (Hl + 2) output rows less r at
                            each end.
 
-Each op with `group` None, or a group of one rank, is the unsharded op.
+The two convolutions also take a `disp_group` (`parallel/disparity.py`):
+the 3D volume x is then this rank's block of disparity bins (dim 2) as
+well, and the D pad of XLA's rule, (1, 1) at stride 1 and (0, 1) at
+stride 2, comes from the D neighbours first (zeros only at the first and
+last bins; blocks of an even number of bins at stride 2), the
+deconvolution's one bin from each, 2 less at each end of its output.
+The H rows are then taken of the D-haloed block, so that the corner
+elements a 3x3x3 kernel needs under both groups arrive in the two
+exchanges, with no third.
+
+Each op with `group` None, or a group of one rank, is the unsharded op
+(and likewise for `disp_group`).
 `row_block` gives a rank's rows, and `check_spatial_shape` the rule that
 the model's shapes must meet to be sharded.
 """
@@ -58,7 +69,7 @@ def same_padding(
 
 def space_size(group) -> int:
     """The number of ranks that share H: 1 for no group."""
-    return 1 if group is None else comm.group_rank(group)[1]
+    return comm.group_size(group)
 
 
 def row_block(n_rows: int, group=None) -> tuple[int, int]:
@@ -99,6 +110,15 @@ def check_spatial_shape(cfg, height: int, space: int) -> None:
     )
 
 
+def _halo_bins(x: torch.Tensor, above: int, below: int, group) -> torch.Tensor:
+    """The 3D volume x with `above` bins of the previous rank's block before
+    it and `below` bins of the next rank's after it, along D (dim 2)."""
+    if x.dim() != 5:
+        raise ValueError(f"a disparity halo needs a (B, C, D, H, W) volume, got {tuple(x.shape)}")
+    top, bottom = comm.halo_exchange(x, above, group, below=below, dim=2)
+    return torch.cat([top, x, bottom], dim=2)
+
+
 def _halo_rows(x: torch.Tensor, above: int, below: int, group, edge: str = "zeros") -> torch.Tensor:
     """x with `above` rows of the previous rank's block on top and `below`
     rows of the next rank's under it, along H (dim -2)."""
@@ -113,16 +133,25 @@ def halo_conv_same(
     stride: int = 1,
     scale: torch.Tensor | None = None,
     group=None,
+    disp_group=None,
 ) -> torch.Tensor:
     """`weight` applied to this rank's block x (B, C, [D,] Hl, W) with
     "SAME" padding, in x's dtype; with `scale`, each output channel's
-    weights times it first, in float32."""
+    weights times it first, in float32.  With a `disp_group`, x is this
+    rank's block of D bins too."""
     k = weight.shape[-1]
     if scale is not None:
         weight = weight * scale.view((-1,) + (1,) * (weight.dim() - 1))
     weight = weight.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     pads = same_padding(x.shape[2:], k, stride)
+    if space_size(disp_group) > 1:
+        if x.shape[2] % stride:
+            raise ValueError(
+                f"a stride-{stride} conv needs blocks of a multiple of {stride} bins, got {x.shape[2]}"
+            )
+        x = _halo_bins(x, *pads[0], disp_group)
+        pads[0] = (0, 0)
     if space_size(group) > 1:
         if x.shape[-2] % stride:
             raise ValueError(
@@ -138,19 +167,26 @@ def halo_conv_same(
 
 
 def halo_conv_transpose(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, group=None
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, group=None,
+    disp_group=None,
 ) -> torch.Tensor:
     """The stride-2, kernel-4, padding-1 transposed conv of this rank's
-    block x (B, C, [D,] Hl, W), in x's dtype: its block of 2 Hl rows."""
+    block x (B, C, [D,] Hl, W), in x's dtype: its block of 2 Hl rows (and
+    with a `disp_group`, of its block of Dl bins, 2 Dl bins)."""
     if weight.shape[-1] != 4:
         raise ValueError(f"the deconvolution has kernel 4, got {tuple(weight.shape)}")
     weight = weight.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     fn = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d
-    if space_size(group) == 1:
-        return fn(x, weight, bias, stride=2, padding=1)
-    y = fn(_halo_rows(x, 1, 1, group), weight, bias, stride=2, padding=1)
-    return y[..., 2:-2, :]
+    bins, rows = space_size(disp_group) > 1, space_size(group) > 1
+    if bins:
+        x = _halo_bins(x, 1, 1, disp_group)
+    if rows:
+        x = _halo_rows(x, 1, 1, group)
+    y = fn(x, weight, bias, stride=2, padding=1)
+    if bins:
+        y = y[:, :, 2:-2]
+    return y[..., 2:-2, :] if rows else y
 
 
 def halo_trilinear_upsample(

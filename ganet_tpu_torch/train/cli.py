@@ -10,6 +10,7 @@ its flags and defaults), run as `python -m ganet_tpu_torch.train`:
 
     python -m ganet_tpu_torch.train --mesh_data 4 --batchSize 8 ...
     python -m ganet_tpu_torch.train --mesh_space 2 --mesh_data 2 --batchSize 4 ...
+    python -m ganet_tpu_torch.train --mesh_disp 2 ...
     torchrun --nproc_per_node 4 -m ganet_tpu_torch.train --distributed 1 \
         --mesh_data 4 --batchSize 8 ...
 
@@ -21,21 +22,23 @@ and the JAX package's (scan runs the plain versions, pallas the kernels).
 --compile_cache is accepted for the reference's command lines and does
 nothing: it sets XLA's compilation cache, which PyTorch does not have.
 
---mesh_data N --mesh_space S trains on N x S ranks of `torch.distributed`
-laid out as the mesh (N, S, 1), the counterpart of one JAX process that
-owns N x S devices: the batch is split over `data`, the image height over
-`space` (`train/trainer.py`).  This process is rank 0 and starts the
+--mesh_data N --mesh_space S --mesh_disp P trains on N x S x P ranks of
+`torch.distributed` laid out as the mesh (N, S, P), the counterpart of one
+JAX process that owns N x S x P devices: the batch is split over `data`,
+the image height over `space` and the cost volume's disparity bins over
+`disp` (`train/trainer.py`).  This process is rank 0 and starts the
 others on this host (`parallel/launch.py`), each on card rank % device
 count (--device cpu: on the CPU), joined by NCCL when every rank has a
 card of its own and by gloo otherwise.  --batchSize is the global batch,
-which N must divide, and S must share --crop_height by the model's shape
-rule (`parallel.spatial.check_spatial_shape`); either fault exits before
-this host starts a rank.  With --distributed 1 this process is one rank of a
-world that is already running (`env://`, as `torchrun` sets it up), whose
-size must be N x S.  Rank 0 alone prints, logs and writes the
-checkpoints, which hold no trace of the mesh.  --mesh_disp above 1 and
---channel_tp 1 raise NotImplementedError: channel tensor parallelism
-(ROADMAP queue 1 #8) is not ported.
+which N must divide; S must share --crop_height by the model's shape rule
+(`parallel.spatial.check_spatial_shape`) and P the bins of --max_disp by
+its disparity rule (`parallel.disparity.check_disp_shape`); each fault
+exits before this host starts a rank.  With --distributed 1 this process
+is one rank of a world that is already running (`env://`, as `torchrun`
+sets it up), whose size must be N x S x P.  Rank 0 alone prints, logs and
+writes the checkpoints, which hold no trace of the mesh.  --channel_tp 1
+raises NotImplementedError: channel tensor parallelism (ROADMAP queue 1
+#8b) is not ported.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from ganet_tpu_torch.config import (
     model_config,
 )
 from ganet_tpu_torch.parallel.launch import default_backend, join_world, launch
-from ganet_tpu_torch.train.trainer import Trainer, check_train_mesh, check_train_shape
+from ganet_tpu_torch.train.trainer import Trainer, check_train_shape
 
 # The JAX package's --sga_impl values, as the port's `impl`.
 JAX_IMPLS = {"scan": "torch", "pallas": "kernel"}
@@ -88,9 +91,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mesh_space", type=int, default=1,
                    help="ranks that split the image height (the cost volume's rows)")
     p.add_argument("--mesh_disp", type=int, default=1,
-                   help="mesh: not ported above 1 (ROADMAP queue 1 #8)")
+                   help="ranks that split the cost volume's disparity bins")
     p.add_argument("--channel_tp", type=int, default=0,
-                   help="channel TP: not ported (ROADMAP queue 1 #8)")
+                   help="channel TP: not ported (ROADMAP queue 1 #8b)")
     p.add_argument("--eval", type=int, default=0, help="validate after training")
     p.add_argument("--lr_decay_epoch", type=int, default=0)
     p.add_argument("--bf16", type=int, default=0, help="bfloat16 compute")
@@ -98,8 +101,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--remat", type=str, default="sga", choices=REMATS,
                    help="rematerialisation: recompute in backward to save activation memory")
     p.add_argument("--distributed", type=int, default=0,
-                   help="join a running world of --mesh_data x --mesh_space ranks (env://, as"
-                   " torchrun sets it)")
+                   help="join a running world of --mesh_data x --mesh_space x --mesh_disp ranks"
+                   " (env://, as torchrun sets it)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches staged by the background input thread; 0 disables it")
     p.add_argument("--compile_cache", type=int, default=1,
@@ -115,10 +118,9 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
     whose paths are not ported."""
     if args.channel_tp:
         raise NotImplementedError(
-            "--channel_tp 1: channel tensor parallelism (ROADMAP queue 1 #8) is not ported yet"
+            "--channel_tp 1: channel tensor parallelism (ROADMAP queue 1 #8b) is not ported yet"
         )
     mesh = MeshConfig(data=args.mesh_data, space=args.mesh_space, disp=args.mesh_disp)
-    check_train_mesh(mesh)
     kind = (
         "synthetic"
         if args.synthetic_data
@@ -163,10 +165,12 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
 def check_flags(cfg: TrainConfig) -> None:
     """Exit (SystemExit) for flags that no mesh can train: a mesh axis
     below 1, a --batchSize that --mesh_data does not divide, a
-    --crop_height that --mesh_space cannot share."""
+    --crop_height that --mesh_space cannot share, a --max_disp whose bins
+    --mesh_disp cannot share."""
     mesh = cfg.mesh
     if min(mesh.data, mesh.space, mesh.disp) < 1:
-        raise SystemExit(f"--mesh_data {mesh.data} --mesh_space {mesh.space}: each must be at least 1")
+        raise SystemExit(f"--mesh_data {mesh.data} --mesh_space {mesh.space} --mesh_disp "
+                         f"{mesh.disp}: each must be at least 1")
     if cfg.batch_size % mesh.data:
         raise SystemExit(f"--batchSize {cfg.batch_size} must be divisible by --mesh_data {mesh.data}")
     try:
@@ -180,8 +184,8 @@ def run(rank: int, world: int, args: argparse.Namespace) -> Trainer:
     `world` (0 of 1 on one device); returns the closed trainer."""
     cfg = build_config(args)
     if world != cfg.mesh.num_devices:
-        raise ValueError(f"--mesh_data {cfg.mesh.data} x --mesh_space {cfg.mesh.space} needs a"
-                         f" world of as many ranks, got {world}")
+        raise ValueError(f"--mesh_data {cfg.mesh.data} x --mesh_space {cfg.mesh.space} x --mesh_disp"
+                         f" {cfg.mesh.disp} needs a world of as many ranks, got {world}")
     # A rank of several takes the card that its launcher set as current.
     trainer = Trainer(cfg, device=args.device if world == 1 or args.device == "cpu" else None)
     if trainer.is_lead:
@@ -189,6 +193,7 @@ def run(rank: int, world: int, args: argparse.Namespace) -> Trainer:
             f"model={cfg.model.name} max_disp={cfg.model.max_disp} "
             f"crop={cfg.data.crop_height}x{cfg.data.crop_width} batch={cfg.batch_size} "
             f"remat={cfg.model.remat} mesh_data={cfg.mesh.data} mesh_space={cfg.mesh.space} "
+            f"mesh_disp={cfg.mesh.disp} "
             f"device={trainer.device} "
             f"start_epoch={trainer.start_epoch}"
         )

@@ -41,9 +41,9 @@ class TrainState:
     """What a train step updates in place: the model's parameters and
     running statistics, the optimiser's moments, the schedule, the step;
     `group`, the mesh's `data` x `space` plane that the step sums the
-    loss, the metrics and the gradients over (None on one device); and
-    `space_group`, the `space` line whose ranks share the image's rows
-    (None when `space` is 1)."""
+    loss and the metrics over (None on one device); and `space_group`,
+    the `space` line whose ranks share the image's rows (None when `space`
+    is 1).  The model's mesh holds the rest (`GANet.mesh`)."""
 
     model: GANet
     optimizer: torch.optim.Adam

@@ -11,27 +11,31 @@ trick of the JAX trainer: the pair (flip(right), flip(left)) predicts the
 flipped right-view disparity, and both pairs run in one forward stacked
 along the batch, so BatchNorm statistics cover both.
 
-A mesh `MeshConfig(data=N, space=S)`, run as N x S ranks of
-`torch.distributed`, one device each, computes what one device computes
-on the global batch, as the JAX step `make_train_step(cfg, mesh)` does
-under GSPMD.  The `data` axis splits the batch (each rank of a `space`
-line reads the same slice); the `space` axis splits the image height:
-each rank runs the 2D part on the whole image and the aggregation on its
-block of rows (`models/ganet.py`), and holds its rows of the heads'
-maps against its rows of the targets (`row_block`).  Train-mode
-BatchNorm takes its moments over the global tensor (`sync_batch_norm`:
-the 2D part's over `data`, the aggregation's over `data` x `space`), the
-loss divides by the global batch's valid pixels, the gradients are
-summed over the `data` x `space` plane (`Mesh.volume_group`) after
-backward (one flat buffer; summing from autograd hooks, as DDP's reducer
-does, would interleave with the collectives that backward issues, in an
-order that can differ between ranks), and every rank takes the same Adam
-update.  The loss and the metrics a step returns are the global batch's.
-The ranks' parameters stay the same bits.  The 2D part's running
-statistics are each rank's own: on the card cuDNN's default algorithms
-do not repeat bit for bit, so the ranks of a `space` line, each running
-that part whole, hold them equal up to float noise; a checkpoint holds
-rank 0's.
+A mesh `MeshConfig(data=N, space=S, disp=P)`, run as N x S x P ranks
+of `torch.distributed`, one device each, computes what one device
+computes on the global batch, as the JAX step `make_train_step(cfg,
+mesh)` does under GSPMD.  The `data` axis splits the batch (every rank
+of a `space` x `disp` plane reads the same slice); the `space` axis
+splits the image height and the `disp` axis the conv phase's disparity
+bins: each rank runs the 2D part on the whole image and the aggregation
+on its block of rows and bins (`models/ganet.py`), and holds its rows of
+the heads' maps, which every rank of a `disp` line computes alike,
+against its rows of the targets (`row_block`).  Train-mode BatchNorm
+takes its moments over the global tensor (`sync_batch_norm`: the 2D
+part's over `data`, the aggregation's over the whole mesh), the loss
+divides by the global batch's valid pixels, the loss, the valid count
+and the metrics sum over the `data` x `space` plane (`Mesh.volume_group`),
+the gradients are summed over the whole mesh after backward (one flat
+buffer; summing from autograd hooks, as DDP's reducer does, would
+interleave with the collectives that backward issues, in an order that
+can differ between ranks) and the 2D part's then divided by P
+(`make_train_step`), and every rank takes the same Adam update.  The
+loss and the metrics a step returns are the global batch's.  The ranks'
+parameters stay the same bits.  The 2D part's running statistics are
+each rank's own: on the card cuDNN's default algorithms do not repeat
+bit for bit, so the ranks of a `space` x `disp` plane, each running that
+part whole, hold them equal up to float noise; a checkpoint holds rank
+0's.
 
 `Trainer` trains from a `TrainConfig`: its datasets (files or synthetic)
 through `BatchIterator` (each rank reads its slice of the global batch),
@@ -59,6 +63,7 @@ from ganet_tpu_torch.data.pipeline import BatchIterator, process_coordinates
 from ganet_tpu_torch.entry import Device, build_model, resolve_device
 from ganet_tpu_torch.models.layers import sync_batch_norm
 from ganet_tpu_torch.parallel.comm import all_reduce_, all_reduce_grads
+from ganet_tpu_torch.parallel.disparity import check_disp_shape
 from ganet_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ganet_tpu_torch.parallel.spatial import check_spatial_shape, row_block
 from ganet_tpu_torch.train.checkpoint import latest_step, load_train_state, save_checkpoint
@@ -75,27 +80,19 @@ TARGET_KEYS = ("disparity", "valid", "disparity_right", "valid_right")
 Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
 
-def check_train_mesh(mesh: MeshConfig) -> None:
-    """Raise NotImplementedError for a mesh the port cannot train on: a
-    `disp` axis above 1."""
-    if mesh.disp > 1:
-        raise NotImplementedError(
-            f"mesh {mesh}: the port trains over the data and space axes; channel tensor"
-            " parallelism over the disp axis (ROADMAP queue 1 #8) is not ported yet"
-        )
-
-
 def check_train_shape(cfg: TrainConfig) -> None:
     """Raise ValueError, naming the sizes that pass, unless `cfg.mesh.space`
-    ranks can share the crop height (`check_spatial_shape`).  The test set
-    is padded to the crop, so one check covers training and evaluation."""
+    ranks can share the crop height (`check_spatial_shape`) and
+    `cfg.mesh.disp` ranks the cost volume's bins (`check_disp_shape`).  The
+    test set is padded to the crop, so one check covers training and
+    evaluation."""
     check_spatial_shape(cfg.model, cfg.data.crop_height, cfg.mesh.space)
+    check_disp_shape(cfg.model, cfg.mesh.disp)
 
 
 def train_mesh(mesh: MeshConfig) -> Optional[Mesh]:
-    """This rank's place in the (data, space, 1) mesh of `mesh`, built over
+    """This rank's place in the (data, space, disp) mesh `mesh`, built over
     the initialised default group (a collective); None for one device."""
-    check_train_mesh(mesh)
     return make_mesh(mesh) if mesh.num_devices > 1 else None
 
 
@@ -112,8 +109,9 @@ def create_train_state(
     `mesh` is this rank's place in `cfg.mesh` (default `train_mesh(cfg.mesh)`),
     whose model is this rank's part of the sharded model.  Its BatchNorm
     takes two groups (`sync_batch_norm`): the 2D part's moments sum over
-    `data`, the aggregation's over `data` x `space`.  The state's steps sum
-    over `data` x `space` (`Mesh.volume_group`), and the ranks' initial
+    `data`, the aggregation's over the whole mesh.  The state's steps sum
+    the loss and the metrics over `data` x `space` (`Mesh.volume_group`)
+    and the gradients over the whole mesh, and the ranks' initial
     parameters and buffers are compared bit for bit over the whole mesh:
     a rank that built others raises."""
     mesh = train_mesh(cfg.mesh) if mesh is None else mesh
@@ -122,7 +120,7 @@ def create_train_state(
     if mesh is not None:
         sync_batch_norm(model, mesh.data_group if mesh.size("data") > 1 else None)
         group = mesh.volume_group
-        sync_batch_norm(model.cost_agg, group)
+        sync_batch_norm(model.cost_agg, mesh.world_group)
         space = mesh.space_group if mesh.size("space") > 1 else None
         digests = [None] * dist.get_world_size()
         dist.all_gather_object(digests, model_digest(model))
@@ -169,8 +167,8 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str,
     as device tensors (no synchronisation), and "lr", the learning rate of
     this update, as a float.  With `state.group` the batch is this rank's
     slice of the global batch (its `data` index's; the ranks of a `space`
-    line pass the same whole images), and the loss and the metrics are the
-    global batch's.
+    x `disp` plane pass the same whole images), and the loss and the
+    metrics are the global batch's.
 
     Why the gradients' sum over `data` x `space` is the global batch's:
     the global loss is the sum of the ranks' losses, each divided by the
@@ -181,6 +179,24 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str,
     gradient through every row; the sum over `data` is that of the data
     slices, as BatchNorm's all-reduce backward on the `data` group sums
     the cotangents of the moments that the slices share.
+
+    Why, with `disp` P > 1, the sum over the whole mesh is the global
+    batch's for the aggregation and P times it for the 2D part.  The ranks
+    of a `disp` line compute one loss, whose cotangent is then the same on
+    every rank, and the boundary ops keep two kinds of tensor exact:
+    a block's cotangent on a rank is the loss's derivative by that block,
+    a replicated tensor's is its whole derivative on every rank.
+    `gather_blocks` hands each rank its block of the replicated
+    cotangent, `take_block` gathers the blocks' cotangents, and
+    `copy_in` sums over the line the cotangents that each rank's block of
+    the cost volume gives the whole features.  BatchNorm's sum over the
+    mesh sums the cotangents of the moments that all blocks share.  So an
+    aggregation parameter's gradient on a rank covers its rows and bins,
+    and the whole mesh sums them, the heads' C -> 1 convs included; a 2D
+    parameter's covers every bin of the rank's rows, alike on each rank
+    of the line, so the mesh's sum counts it P times and is divided by P:
+    on the card, where cuDNN's replicated runs need not agree bit for
+    bit, that is their mean, the same bits on every rank.
     """
     left_right = cfg.data.left_right
 
@@ -212,7 +228,13 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str,
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if group is not None:
-            all_reduce_grads(model.parameters(), group)
+            all_reduce_grads(model.parameters(), model.mesh.world_group)
+            disp = model.mesh.size("disp")
+            if disp > 1:
+                blocked = {id(p) for p in model.cost_agg.parameters()}
+                for p in model.parameters():
+                    if p.grad is not None and id(p) not in blocked:
+                        p.grad.div_(disp)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -246,11 +268,12 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str, 
 class Trainer:
     """The training run of a `TrainConfig` on one device (the CUDA device
     unless `device` names another), or on this rank's device of a mesh
-    (`cfg.mesh.data` x `cfg.mesh.space` ranks, every one of which builds a
-    `Trainer`; `mesh` defaults to `train_mesh(cfg.mesh)`), with the JAX
-    `Trainer`'s methods and their semantics.  The ranks of a `space` line
-    read the same slice of each global batch, crops included (checked at
-    the first step); a crop height that `space` cannot share raises
+    (`cfg.mesh.num_devices` ranks, every one of which builds a `Trainer`;
+    `mesh` defaults to `train_mesh(cfg.mesh)`), with the JAX `Trainer`'s
+    methods and their semantics.  The ranks of a `space` x `disp` plane
+    read the same slice of each global batch, the slice of their `data`
+    index, crops included (checked at the first step); a crop height that
+    `space` cannot share, or a max_disp that `disp` cannot, raises
     ValueError here, before any step.
 
     A `save_path` that already holds a checkpoint, or `cfg.resume`, restores
@@ -366,17 +389,18 @@ class Trainer:
             self.logger.log(step, metrics, prefix=prefix)
 
     def _check_same_batch(self, batch: Mapping[str, np.ndarray]) -> None:
-        """Raise unless the ranks of this rank's `space` line hold the same
-        batch: one all-gather of its digest over the line."""
-        group = self.state.space_group
-        if group is None:
+        """Raise unless the ranks of this rank's `space` x `disp` plane (its
+        `data` index's) hold the same batch: one all-gather of (data index,
+        digest) over the mesh."""
+        if self.mesh is None or self.mesh.size("space") * self.mesh.size("disp") == 1:
             return
-        digests = [None] * dist.get_world_size(group)
-        dist.all_gather_object(digests, batch_digest(batch), group=group)
+        seen = [None] * dist.get_world_size()
+        dist.all_gather_object(seen, (self.data_index, batch_digest(batch)))
+        digests = [d for i, d in seen if i == self.data_index]
         if len(set(digests)) > 1:
             raise RuntimeError(
-                f"the ranks of a space line read different batches (digests {digests}): they"
-                " must share their data index's slice, crops included"
+                f"the ranks of a space x disp plane read different batches (digests {digests}):"
+                " they must share their data index's slice, crops included"
             )
 
     # -- loops ------------------------------------------------------------

@@ -32,6 +32,7 @@ the loss within 1e-6 and the parameters within 3e-4 per parameter and
 `tests/test_torch_ddp.py` states (JAX's own float32 noise floor).
 """
 
+import dataclasses
 import functools
 import re
 
@@ -54,6 +55,7 @@ from ganet_tpu_torch.convert import convert_flax_variables
 from ganet_tpu_torch.parallel import dp_cases as K
 from ganet_tpu_torch.parallel.launch import launch
 from ganet_tpu_torch.train import Trainer
+from ganet_tpu_torch.train.trainer import check_train_shape
 from tests.torch_parity import he_normal_draw, seeded_variables, two_torch_threads  # noqa: F401
 
 H, W, D = 48, 96, 12
@@ -256,13 +258,28 @@ def test_dryrun_mesh_follows_the_jax_rule(n, mesh):
     assert dryrun.dryrun_mesh(n) == C.MeshConfig(*mesh)
 
 
-def test_dryrun_of_eight_raises_before_any_rank_starts(monkeypatch):
-    def no_launch(*args, **kwargs):
-        raise AssertionError("a rank was started")
-
-    monkeypatch.setattr(dryrun, "launch", no_launch)
-    with pytest.raises(NotImplementedError, match="#8"):
-        dryrun.dryrun_multichip(8, device="cpu")
+def test_dryrun_of_eight_raises_before_any_rank_starts():
+    """The disp branch (n a multiple of 8), which raised before any rank
+    started while the port had no `disp` axis, now runs
+    (tests/test_torch_disp_train.py runs n = 8): its mesh and config are
+    those of the repo's `__graft_entry__.dryrun_multichip`, field for
+    field, and pass the port's shape rules."""
+    for n, (data, space) in ((8, (2, 2)), (16, (2, 4)), (24, (6, 2))):
+        mesh = dryrun.dryrun_mesh(n)
+        assert (mesh.data, mesh.space, mesh.disp) == (data, space, 2)
+        cfg = dryrun.dryrun_config(mesh)
+        ref = J.TrainConfig(model=J.ganet_small(max_disp=24),
+                            data=J.DataConfig(crop_height=48, crop_width=96, kind="synthetic"),
+                            mesh=J.MeshConfig(data=data, space=space, disp=2), batch_size=2 * data)
+        mine, theirs = dataclasses.asdict(cfg), dataclasses.asdict(ref)
+        j_model = theirs.pop("model")
+        assert mine.pop("model") == {
+            **{k: v for k, v in j_model.items() if k not in ("sga_impl", "channel_tp")},
+            "impl": {"pallas": "kernel", "scan": "torch", "auto": "auto"}[j_model["sga_impl"]]}
+        assert not j_model["channel_tp"]
+        assert {k: v for k, v in mine.items() if k != "save_path"} == {
+            k: v for k, v in theirs.items() if k != "save_path"}
+        check_train_shape(cfg)
 
 
 @pytest.mark.parametrize("model, height, space", [("GANet_deep", 240, 4), ("GANet_small", 48, 3)])

@@ -337,9 +337,9 @@ def test_train_step_matches_jax(small_variables, left_right):
 
 def test_train_and_eval_steps_run_and_learn():
     """A few Adam steps on one fixed batch lower the loss; the eval step is
-    the eval-mode forward's metrics; a mesh sharded over `disp` is
-    refused, and a `data` axis needs the ranks of a running world
-    (tests/test_torch_ddp.py trains on one)."""
+    the eval-mode forward's metrics; a mesh sharded over `disp` or `data`
+    needs the ranks of a running world (tests/test_torch_ddp.py and
+    tests/test_torch_disp_train.py train on them)."""
     cfg = C.TrainConfig(model=C.ganet_small(D),
                         data=C.DataConfig(crop_height=H, crop_width=W, kind="synthetic"),
                         optim=C.OptimConfig(lr=3e-3), batch_size=2)
@@ -355,7 +355,7 @@ def test_train_and_eval_steps_run_and_learn():
     want = disparity_metrics(disp, torch.from_numpy(batch["disparity"]), torch.from_numpy(batch["valid"]))
     for k in want:
         assert metrics[k].item() == pytest.approx(want[k].item(), rel=1e-6), k
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         create_train_state(dataclasses.replace(cfg, mesh=C.MeshConfig(disp=2)), device="cpu")
     with pytest.raises(RuntimeError, match="torch.distributed"):
         create_train_state(dataclasses.replace(cfg, mesh=C.MeshConfig(data=2)), device="cpu")

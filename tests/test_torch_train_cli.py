@@ -5,11 +5,12 @@ For a table of command lines (the reference's at `train.py:7-10` among
 them) the port's `build_config` gives `train.py`'s `TrainConfig` field
 for field; the model's `impl` stands for JAX's `sga_impl` (scan runs the
 plain versions, pallas the kernels), and `channel_tp`, which the port
-lacks, is off.  Flags whose paths are not ported raise.  Then the CLI
-trains GANet_small for 2 steps on synthetic data and writes a checkpoint
-that the port's predict CLI loads; trains it on 2 ranks (--mesh_data 2,
-this process rank 0) and resumes the checkpoint on one device; and joins
-a world that the environment describes (--distributed 1).
+lacks, is off.  --channel_tp 1, whose path is not ported, raises.  Then
+the CLI trains GANet_small for 2 steps on synthetic data and writes a
+checkpoint that the port's predict CLI loads; trains it on 2 ranks
+(--mesh_data 2, this process rank 0) and resumes the checkpoint on one
+device; trains it over --mesh_disp 2; and joins a world that the
+environment describes (--distributed 1).
 """
 
 import contextlib
@@ -82,20 +83,36 @@ def test_flags_and_defaults_match_train_py():
                                   ["--channel_tp", "1"]],
                          ids=lambda a: a[0][2:])
 def test_unported_flags_raise(argv):
-    j_train.build_config(j_train.parse_args(argv))  # the reference takes them
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        build_config(parse_args(argv))
+    """--mesh_disp is ported: its configs are train.py's, as in
+    test_build_config_matches_train_py; --channel_tp 1 still raises."""
+    ref = j_train.build_config(j_train.parse_args(argv))  # the reference takes them
+    if "--channel_tp" in argv:
+        with pytest.raises(NotImplementedError, match="queue 1 #8b"):
+            build_config(parse_args(argv))
+        return
+    mine = dataclasses.asdict(build_config(parse_args(argv)))
+    ref = dataclasses.asdict(ref)
+    ref_model = ref.pop("model")
+    assert mine.pop("model") == {
+        **{k: v for k, v in ref_model.items() if k not in ("sga_impl", "channel_tp")},
+        "impl": IMPL[ref_model["sga_impl"]],
+    }
+    assert mine == ref and mine["mesh"]["disp"] == 2
 
 
 @pytest.mark.parametrize("argv, words", [
     (["--mesh_space", "4"], "space 4 cannot share a height of 240"),
     (["--mesh_space", "2", "--crop_height", "264"], "space 2 cannot share a height of 264"),
     (["--mesh_data", "2", "--batchSize", "3"], "--batchSize 3 must be divisible by --mesh_data 2"),
-], ids=["space4_at_240", "space2_at_264", "batch"])
+    (["--mesh_disp", "3"], "disp may be [1, 2, 4, 8]"),
+    (["--mesh_disp", "2", "--max_disp", "36"], "disp 2 cannot share max_disp 36"),
+], ids=["space4_at_240", "space2_at_264", "batch", "disp3_at_192", "disp2_at_36"])
 def test_flags_no_mesh_can_train_exit_before_any_rank(argv, words, monkeypatch):
     """GANet_deep's shape rule at the reference crop (H/3 = 80 rows in
-    blocks of a multiple of 8: space 2 fits, 4 does not), and a batch that
-    --mesh_data does not divide: SystemExit before a rank starts."""
+    blocks of a multiple of 8: space 2 fits, 4 does not), its disparity
+    rule (max_disp / 3 bins in blocks of a multiple of 8: 192 takes disp
+    1, 2, 4 or 8, 36 none above 1), and a batch that --mesh_data does not
+    divide: SystemExit, with the rule's message, before a rank starts."""
     import ganet_tpu_torch.train.cli as cli
 
     monkeypatch.setattr(cli, "launch", lambda *a, **k: pytest.fail("a rank was started"))
@@ -156,6 +173,24 @@ def test_trains_on_two_ranks_and_resumes_on_one_device(tmp_path):
     resumed = main(argv + ["--nEpochs", "2"])
     assert resumed.mesh is None and resumed.start_epoch == 1 and resumed.state.step == 4
     assert _rows(save) == [("epoch0", 1), ("epoch0", 2), ("epoch1", 3), ("epoch1", 4)]
+
+
+def test_trains_over_disp_and_predict_loads(tmp_path):
+    """--mesh_disp 2: two ranks share the cost volume's bins; one run's rows
+    and checkpoint, rank 0's state bit for bit, which the predict CLI reads
+    on one device."""
+    save = str(tmp_path / "ckpt")
+    trainer = main(SMALL + ["--batchSize", "2", "--steps", "2", "--nEpochs", "1", "--log_every",
+                            "1", "--save_path", save, "--device", "cpu", "--mesh_disp", "2"])
+    assert trainer.mesh.index == {"data": 0, "space": 0, "disp": 0} and trainer.state.step == 2
+    assert trainer.cfg.mesh.disp == 2 and trainer.state.model.mesh.size("disp") == 2
+    assert _rows(save) == [("epoch0", 1), ("epoch0", 2)]
+    final = trainer.state.model.state_dict()
+    for k, v in load_inference_state(save).items():
+        assert torch.equal(v, final[k]), k
+    written = t_predict.main(SMALL + ["--resume", save, "--save_path", str(tmp_path / "out"),
+                                      "--device", "cpu"])
+    assert len(written) == 4 and all(os.path.exists(p) for p in written)
 
 
 def test_joins_a_world_from_the_environment(tmp_path, monkeypatch):
