@@ -152,7 +152,25 @@ CUDA toolkit.  Phases, each printing its lines:
      predict CLI on one device; (d) `python -m ganet_tpu_torch.dryrun 8`
      (mesh (2, 2, 2), GANet_small: D halos, H halos and their corners,
      the wavefront, BatchNorm over the whole mesh); (e) K1-K6 against
-     their plain versions at every shape the ranks launched them at.
+     their plain versions at every shape the ranks launched them at;
+ 20. channel tensor parallelism on 2 ranks over `disp` that share the
+     card over gloo (`channel_tp`: each rank holds a block of the
+     channels of every aggregation volume, with every bin): (a) GANet_deep's
+     eval forward at 576x960, max_disp 192, batch 1, the f32 disparity
+     within 2e-2 px of one device and bf16 within 1.5x one device's bf16
+     error, each rank's launches (one device's: K1 28, K2 4, each K1 on
+     the rank's channels, N = B C / 2), every 3D convolution the one
+     device's with a block of its output channels (a head's C -> 1 conv:
+     of its input channels) at every bin, bf16 forward time and peak
+     memory; (b) its training at 240x528, global batch 2, remat sga: one
+     f32 step against one device under phase 18's gates, the ranks'
+     parameters and the aggregation's buffers the same bits, each rank's
+     launches a step (K1 56, K2 8, K3 28, K4 4), bf16 step time,
+     all-reduce time and peak memory; (c) `python -m
+     ganet_tpu_torch.train --mesh_disp 2 --channel_tp 1` for 2 steps from
+     phase 15's files, its checkpoint read by the predict CLI on one
+     device; (d) K1-K4 against their plain versions at every shape the
+     ranks launched them at.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -2328,7 +2346,7 @@ def sharded_forward_launches(cfg, W: int) -> dict:
 
 
 def sharded_forward_checks(torch, smi, tag: str, mesh: tuple, seed: int, want: dict,
-                           device: str) -> "Counter":
+                           device: str, channel_tp: bool = False) -> "Counter":
     """(a)-(d) of a sharded eval forward of GANet_deep at SP_FRAME, batch 1,
     on the ranks of `mesh` (data, space, disp), which share the card over
     gloo, against one device in this process (the same seeded init 0):
@@ -2336,8 +2354,10 @@ def sharded_forward_checks(torch, smi, tag: str, mesh: tuple, seed: int, want: d
     SP_BF16_FACTOR times one device's bf16 error, (c) each rank's launches
     (`want`), every rank holding the same whole disparity, and every 3D
     convolution's input depth at most a rank's block of bins and a halo of
-    2, (d) each rank's bf16 forward time and peak memory.  Returns the
-    shapes the ranks launched K1, K5 and K2 at."""
+    2, or with `channel_tp` every 3D convolution the one device's with a
+    1/disp block of its output channels (a head's C -> 1 conv: of its
+    input channels) at every bin, (d) each rank's bf16 forward time and
+    peak memory.  Returns the shapes the ranks launched K1, K5 and K2 at."""
     from collections import Counter
     import tempfile
 
@@ -2350,8 +2370,9 @@ def sharded_forward_checks(torch, smi, tag: str, mesh: tuple, seed: int, want: d
     (H, W), D = SP_FRAME, SP_MAX_DISP
     ranks = mesh[0] * mesh[1] * mesh[2]
     label = ", ".join(f"{a} {n}" for a, n in zip(("data", "space", "disp"), mesh) if n > 1)
+    label += " (channel TP)" if channel_tp else ""
     model = dict(kind="model", model="GANet_deep", mesh=mesh, batch=1, size=(H, W), max_disp=D,
-                 seed=seed)
+                 seed=seed, channel_tp=channel_tp)
     cases = [dict(model, name="f32", dtype="float32"),
              dict(model, name="bf16", dtype="bfloat16", reps=SP_TIMED)]
     shapes = Counter()
@@ -2373,23 +2394,27 @@ def sharded_forward_checks(torch, smi, tag: str, mesh: tuple, seed: int, want: d
             if cuda and res["launches"] != full:  # the plain versions count nothing
                 raise AssertionError(f"{tag} {case['name']} rank {rank}: launched {res['launches']}, "
                                      f"expected {full}")
-            if not res["depths"] or max(res["depths"]) > depth_bound:
+            if not channel_tp and (not res["depths"] or max(res["depths"]) > depth_bound):
                 raise AssertionError(f"{tag} {case['name']} rank {rank}: 3D convolutions at depths "
                                      f"{sorted(set(res['depths']))}, bound {depth_bound}")
             shapes.update(res["shapes"])
         if not all(torch.equal(r["out"], res_ranks[0]["out"]) for r in res_ranks):
             raise AssertionError(f"{tag} {case['name']}: the ranks returned other disparities")
-        log(f"  {tag} (c) {case['name']}: launches of each rank's forward {want} (K3, K4, K6, K7 none); "
-            f"every rank holds the same whole disparity; the {len(res_ranks[0]['depths'])} 3D "
-            f"convolutions of a rank at depths {sorted(set(res_ranks[0]['depths']))} (at most "
-            f"{depth_bound}) ok")
+        if not channel_tp:
+            log(f"  {tag} (c) {case['name']}: launches of each rank's forward {want} (K3, K4, K6, K7 "
+                f"none); every rank holds the same whole disparity; the {len(res_ranks[0]['depths'])} 3D "
+                f"convolutions of a rank at depths {sorted(set(res_ranks[0]['depths']))} (at most "
+                f"{depth_bound}) ok")
 
-    # (a), (b) against one device in this process, the same weights (seeded init 0).
+    # (a), (b) against one device in this process, the same weights (seeded
+    # init 0); the f32 run records its 3D convolutions' depths and widths.
     left, right = K.model_inputs(cases[0])
     ref = {}
+    depths, widths = [], []
     for dt in ("float32", "bfloat16"):
         one = build_model(ganet_deep(max_disp=D, compute_dtype=dt), device, seed=0)
-        ref[dt] = predict(one, left, right).float().cpu()
+        with (K._Depths(depths, widths) if dt == "float32" else contextlib.nullcontext()):
+            ref[dt] = predict(one, left, right).float().cpu()
         if cuda and dt == "bfloat16":
             times = []
             for _ in range(SP_TIMED):
@@ -2401,6 +2426,22 @@ def sharded_forward_checks(torch, smi, tag: str, mesh: tuple, seed: int, want: d
             log(f"{tag} one device, this process, GANet_deep {H}x{W} D={D} bf16 batch 1: "
                 f"{min(times):.1f} ms (min of {SP_TIMED}; all {', '.join(f'{t:.1f}' for t in times)})")
         del one
+    if channel_tp:
+        # (c) each rank's convolutions: the one device's, a block of channels each.
+        P = mesh[2]
+        blocked = [(win // P, 1) if wout == 1 else (win, wout // P) for win, wout in widths]
+        for case in cases:
+            for rank, res in enumerate(results[case["name"]]):
+                if res["depths"] != depths or res["widths"] != blocked:
+                    raise AssertionError(
+                        f"{tag} {case['name']} rank {rank}: 3D convolutions (in, out) channels "
+                        f"{sorted(set(res['widths']))} at depths {sorted(set(res['depths']))}, expected "
+                        f"{sorted(set(blocked))} at {sorted(set(depths))}")
+            log(f"  {tag} (c) {case['name']}: launches of each rank's forward {want} (K3, K4, K6, K7 "
+                f"none); every rank holds the same whole disparity; each of the {len(depths)} 3D "
+                f"convolutions of a rank is one device's with 1/{P} of its output channels (heads: of "
+                f"its input channels), (in, out) {sorted(set(blocked))}, at every bin "
+                f"({sorted(set(depths))}) ok")
     f32, bf16 = results["f32"][0]["out"], results["bf16"][0]["out"].float()
     diff = (f32 - ref["float32"]).abs()
     ok = bool(torch.isfinite(f32).all()) and tuple(f32.shape) == (1, H, W) and diff.max().item() <= SP_F32_TOL
@@ -2555,15 +2596,16 @@ def ranks_agree(torch, ranks, params) -> tuple:
 
 
 def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want: dict,
-                        dryrun_n: int, device: str, shapes=None) -> None:
+                        dryrun_n, device: str, shapes=None, channel_tp: bool = False) -> None:
     """Sharded training of GANet_deep at TRAIN_CROP, max_disp ST_MAX_DISP,
     global batch 2, remat sga, on the ranks of `mesh` (data, space, disp),
-    which share the card over gloo: (a) parity of one f32 step with one
-    device on the same batch, (b) each rank's launches a step (`want`),
-    step time and peak memory, (c) the train CLI on the mesh from files
-    and the predict CLI on one device from its checkpoint, (d) the dryrun
-    on `dryrun_n` ranks; then K1-K6 held at every shape the ranks
-    launched, and at the `shapes` (a Counter) given."""
+    with `channel_tp` the `disp` ranks splitting channels, which share the
+    card over gloo: (a) parity of one f32 step with one device on the same
+    batch, (b) each rank's launches a step (`want`), step time and peak
+    memory, (c) the train CLI on the mesh from files and the predict CLI on
+    one device from its checkpoint, (d) the dryrun on `dryrun_n` ranks
+    (none for None); then K1-K6 held at every shape the ranks launched,
+    and at the `shapes` (a Counter) given."""
     import math
     import os
     import tempfile
@@ -2583,10 +2625,11 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
     cuda = device == "cuda"
     n_ranks = mesh[0] * mesh[1] * mesh[2]
     axes = [(a, n) for a, n in zip(("data", "space", "disp"), mesh) if n > 1]
-    label = ", ".join(f"{a} {n}" for a, n in axes)
+    label = ", ".join(f"{a} {n}" for a, n in axes) + (" (channel TP)" if channel_tp else "")
     cli_flags = [w for a, n in axes for w in (f"--mesh_{a}", str(n))]
+    cli_flags += ["--channel_tp", "1"] if channel_tp else []
     deep = dict(kind="step", model="GANet_deep", size=(CH, CW), max_disp=D, batch=2, remat="sga",
-                mesh=mesh)
+                mesh=mesh, channel_tp=channel_tp)
     cases = [dict(deep, name="parity", dtype="float32", steps=1, seed=seed),
              dict(deep, name="timed", dtype="bfloat16", steps=2, reps=ST_TIMED, seed=seed)]
     shapes = Counter() if shapes is None else shapes
@@ -2644,6 +2687,10 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
     got = ranks[0]
     g = gaps(got, refs[0])
     same, buffers = ranks_agree(torch, ranks, params)
+    # The aggregation's parameters and buffers (its running statistics are
+    # summed or gathered over the mesh) are the same bits on every rank.
+    agg = [k for k in got["state"] if k.startswith("cost_agg.")]
+    same = same and all(torch.equal(r["state"][k], got["state"][k]) for r in ranks[1:] for k in agg)
     ok = (same and buffers <= DP_STATS_TOL and g[0] <= DP_LOSS_RTOL and g[1] <= DP_STATS_TOL and g[2] <= GRAD_TOL_ALL
           and g[3][0] <= GRAD_TOL_PARAM and g[5] > 0 and g[4] <= DP_FLIP_SHARE
           and math.isfinite(got["losses"][0]))
@@ -2651,8 +2698,9 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
         f"over {label} vs one process, batch 2: loss {got['losses'][0]:.6f} vs "
         f"{refs[0]['losses'][0]:.6f}; {line(g)}; gates: loss {DP_LOSS_RTOL}, statistics "
         f"{DP_STATS_TOL}, gradients {GRAD_TOL_ALL} / {GRAD_TOL_PARAM}, update {DP_FLIP_SHARE:.0%}; "
-        f"the ranks' parameters {'the same bits' if same else 'DIFFER'}, their running statistics "
-        f"{buffers:.2e} apart (each rank's own 2D part) {'ok' if ok else 'FAIL'}")
+        f"the ranks' parameters and aggregation buffers {'the same bits' if same else 'DIFFER'}, "
+        f"their running statistics {buffers:.2e} apart (each rank's own 2D part) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{tag} the sharded step disagrees with the one-device step")
     del refs, ranks, got
@@ -2702,6 +2750,7 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
         final = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
         weights = load_inference_state(save)
         ok = ((launches == full or not cuda) and trainer.cfg.model.remat == "sga"
+              and trainer.cfg.model.channel_tp == channel_tp
               and (trainer.mesh.cfg.data, trainer.mesh.cfg.space, trainer.mesh.cfg.disp) == mesh
               and [r["step"] for r in rows] == list(range(1, ST_CLI_STEPS + 1))
               and all(math.isfinite(r["loss"]) for r in rows)
@@ -2732,6 +2781,12 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
     # (d) the dryrun, python -m ganet_tpu_torch.dryrun n.
     from ganet_tpu_torch.dryrun import dryrun_mesh
 
+    if dryrun_n is None:
+        if cuda:
+            torch.cuda.empty_cache()
+            log(f"{tag} K1-K6 against their plain versions at the {len(shapes)} shapes the ranks launched")
+            hold_at_path_shapes(torch, gen, shapes, tag)
+        return
     dm = dryrun_mesh(dryrun_n)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "ganet_tpu_torch.dryrun", str(dryrun_n)] + dev,
@@ -2791,6 +2846,32 @@ def phase_disp(torch, gen, smi, device: str = "cuda") -> None:
     mesh = (1, 1, DS_RANKS)
     shapes = sharded_forward_checks(torch, smi, "[19]", mesh, 19, FORWARD_LAUNCHES, device)
     sharded_step_checks(torch, gen, smi, "[19]", mesh, 19, STEP_LAUNCHES["sga"], 8, device, shapes)
+
+
+# Phase 20: channel tensor parallelism of GANet_deep on CT_RANKS ranks over
+# `disp` that share the card, and the train CLI with --channel_tp 1.
+CT_RANKS = 2
+
+
+def phase_channel_tp(torch, gen, smi, device: str = "cuda") -> None:
+    """Channel tensor parallelism on CT_RANKS ranks over `disp`: GANet_deep's
+    eval forward at SP_FRAME against one device (`sharded_forward_checks`
+    with `channel_tp`: f32, bf16, each rank's launches, one device's, since
+    every rank sweeps its block of channels over every bin and runs the
+    heads whole, and its 3D convolutions' channels, times and peak memory);
+    then its training (`sharded_step_checks` with `channel_tp`: one f32
+    step against one device, the ranks' parameters and aggregation buffers
+    the same bits, each rank's launches a step, step time, all-reduce time
+    and peak memory, the train CLI with --mesh_disp --channel_tp 1 from
+    files and the predict CLI on one device from its checkpoint); K1-K4
+    held at every shape the ranks launched them at.  `device` "cpu"
+    rehearses the phase's control flow on the plain versions (no times,
+    no kernels to hold)."""
+    mesh = (1, 1, CT_RANKS)
+    shapes = sharded_forward_checks(torch, smi, "[20]", mesh, 20, FORWARD_LAUNCHES, device,
+                                    channel_tp=True)
+    sharded_step_checks(torch, gen, smi, "[20]", mesh, 20, STEP_LAUNCHES["sga"], None, device, shapes,
+                        channel_tp=True)
 
 
 def main() -> int:
@@ -2880,6 +2961,10 @@ def main() -> int:
         log(f"[19] disparity-sharded inference and training on {DS_RANKS} ranks sharing the card, the "
             f"train CLI with --mesh_disp and the dryrun of 8 ({time.perf_counter() - t0:.1f} s)")
         phase_disp(torch, gen, smi)
+    if want(20):
+        log(f"[20] channel tensor parallelism on {CT_RANKS} ranks sharing the card and the train CLI "
+            f"with --channel_tp 1 ({time.perf_counter() - t0:.1f} s)")
+        phase_channel_tp(torch, gen, smi)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

@@ -12,8 +12,10 @@ model's `sga_impl` becomes `impl`:
               plain version, since a CUDA kernel cannot run there).
 
 `ModelConfig.remat` (rematerialisation) is ported, with
-`torch.utils.checkpoint`; `channel_tp` (channel tensor parallelism) is
-not.  `TrainConfig.mesh` is the (data, space, disp) mesh that the port's
+`torch.utils.checkpoint`, and so is `channel_tp` (channel tensor
+parallelism: the mesh's `disp` axis splits the hourglass's channels
+instead of its disparity bins, `parallel/channels.py`).
+`TrainConfig.mesh` is the (data, space, disp) mesh that the port's
 trainer runs on (`train/trainer.py`).
 """
 
@@ -55,6 +57,12 @@ class ModelConfig:
     #   "sga"   recompute the SGA blocks and the disparity heads in backward;
     #   "full"  also recompute the hourglass's 3D-conv stages.
     remat: str = "none"
+    # Channel tensor parallelism: with a mesh whose `disp` axis has more
+    # than one rank, that axis splits the channels of the aggregation's
+    # volumes (each rank holds a block of every volume's channels and
+    # every disparity bin) instead of their disparity bins.  Without a
+    # mesh, or with `disp` 1, it changes nothing.
+    channel_tp: bool = False
 
     def __post_init__(self):
         if self.impl not in IMPLS:

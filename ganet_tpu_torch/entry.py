@@ -9,9 +9,9 @@ rank of the world calling both), the model is one rank of
 `make_predict_fn(cfg, mesh)`: `predict` gives each `data` line its share
 of the batch (the whole batch, replicated, when `data` does not divide
 it, as the JAX package's dispatch does), the `space` ranks of a line
-share its rows and the `disp` ranks its cost volume's bins
-(`models/ganet.py`), and the output, which every rank of a `disp` line
-holds alike, is joined over `space` along H and then over `data` along
+share its rows and the `disp` ranks its cost volume's bins, or with
+`cfg.channel_tp` its aggregation's channels (`models/ganet.py`), and the
+output, which every rank of a `disp` line holds alike, is joined over `space` along H and then over `data` along
 B, so that every rank returns the whole disparity.
 """
 

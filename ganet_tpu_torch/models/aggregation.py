@@ -39,6 +39,17 @@ volume, and its upsample, softmax, LGA and expectation run on every bin
 on every rank of the line, as the JAX package keeps D local in
 `fullres_volume_sharding`.  The maps are then the same on every rank of
 a `disp` line.
+
+Channel tensor parallelism: after `layers.shard_channels(module, group)`
+every volume is this rank's block of channels (`parallel/channels.py`).
+A 3D conv gathers its input's blocks and makes its block of output
+channels; an SGA block sweeps its block of channels with the matching
+block of the weights, taken from the replicated guidance, since the
+recurrence is independent per channel (JAX gathers the channels before
+the sweep instead, `constrain_sweep`: the same function); a head runs its
+C -> 1 conv row-parallel on the block and sums the partial volumes over
+the group, and its upsample, softmax, LGA and expectation run whole on
+every rank of the line, whose maps are again the same.
 """
 
 from __future__ import annotations
@@ -62,8 +73,24 @@ from ganet_tpu_torch.models.layers import (
 from ganet_tpu_torch.ops import dispatch
 from ganet_tpu_torch.ops.disparity import disparity_regression
 from ganet_tpu_torch.ops.normalize import at_least_f32, l1_normalize, normalize_weights
-from ganet_tpu_torch.parallel.comm import gather_blocks, take_block
+from ganet_tpu_torch.parallel.channels import channel_block, channel_slice
+from ganet_tpu_torch.parallel.comm import gather_blocks, group_size, row_reduce, take_block
 from ganet_tpu_torch.parallel.spatial import halo_conv_same, halo_trilinear_upsample
+
+
+def head_conv(x: torch.Tensor, weight: torch.Tensor, space_group=None, disp_group=None,
+              channel_group=None) -> torch.Tensor:
+    """A head's C -> 1 conv of this rank's block x (B, C, D, H, W) ->
+    (B, D, H, W), in x's dtype.  With a `channel_group`, x is this rank's
+    block of channels: its partial conv with that block of the weights (as
+    rounded to x's dtype) runs in float32 and the partials are summed over
+    the group (`comm.row_reduce`), then rounded once, as one device's
+    conv accumulates and rounds."""
+    if group_size(channel_group) == 1:
+        return halo_conv_same(x, weight, group=space_group, disp_group=disp_group)[:, 0]
+    w = channel_slice(weight, channel_group, dim=1).to(x.dtype)
+    part = halo_conv_same(at_least_f32(x), w, group=space_group)[:, 0]
+    return row_reduce(part, channel_group).to(x.dtype)
 
 
 class SGABlock(nn.Module):
@@ -71,6 +98,7 @@ class SGABlock(nn.Module):
 
     space_group = None
     disp_group = None
+    channel_group = None
 
     def __init__(self, channels: int, cfg: ModelConfig):
         super().__init__()
@@ -80,16 +108,20 @@ class SGABlock(nn.Module):
         self.BasicConv_0 = BasicConv(channels, channels, 3, is_3d=True, relu=False)
 
     def forward(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        """x (B, C, D, H, W); g (B, 20C, H, W) raw guidance in (dir, weight, C)
-        channel order."""
+        """x (B, C, D, H, W), or this rank's block of its channels with a
+        `channel_group`; g (B, 20C, H, W) raw guidance in (dir, weight, C)
+        channel order, whole."""
         C = self.channels
-        if x.shape[1] != C or g.shape[1] != 20 * C:
+        a, b = channel_block(C, self.channel_group)
+        if x.shape[1] != b - a or g.shape[1] != 20 * C:
             raise ValueError(
                 f"SGABlock({C}) got x {tuple(x.shape)} and guidance {tuple(g.shape)}"
             )
         B, _, H, W = g.shape
         k = normalize_weights(g.view(B, 4, 5, C, H, W), self.cfg.sga_norm, dim=2)
         k = k.permute(0, 3, 1, 2, 4, 5).contiguous()  # (B, C, 4, 5, H, W)
+        # The sweep is independent per channel: this block's weights.
+        k = take_block(k, 1, self.channel_group)
         rem = x
         # The sweeps couple every bin of a pixel: they run on the whole D.
         x = gather_blocks(x, 2, self.disp_group)
@@ -107,6 +139,7 @@ class DispHead(nn.Module):
 
     space_group = None
     disp_group = None
+    channel_group = None
 
     def __init__(self, cfg: ModelConfig, channels: int):
         super().__init__()
@@ -116,8 +149,7 @@ class DispHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, C, D/3, H/3, W/3) -> (B, H, W)."""
         cfg = self.cfg
-        x = halo_conv_same(x, self.conv.weight, group=self.space_group,
-                           disp_group=self.disp_group)[:, 0]
+        x = head_conv(x, self.conv.weight, self.space_group, self.disp_group, self.channel_group)
         x = gather_blocks(x, 1, self.disp_group)
         D = cfg.max_disp
         H, W = x.shape[2] * 3, x.shape[3] * 3
@@ -133,6 +165,7 @@ class DispAggHead(nn.Module):
 
     space_group = None
     disp_group = None
+    channel_group = None
 
     def __init__(self, cfg: ModelConfig, channels: int):
         super().__init__()
@@ -146,7 +179,7 @@ class DispAggHead(nn.Module):
         hd = torch_dtype(cfg.resolved_head_dtype)
         # C -> 1 conv, then the trilinear x3 upsample in the head dtype.
         group = self.space_group
-        x = halo_conv_same(x, self.conv.weight, group=group, disp_group=self.disp_group)[:, 0]
+        x = head_conv(x, self.conv.weight, group, self.disp_group, self.channel_group)
         x = gather_blocks(x, 1, self.disp_group)
         D = cfg.max_disp
         H, W = x.shape[2] * 3, x.shape[3] * 3

@@ -38,6 +38,16 @@ the SGA sweeps and the heads (`models/aggregation.py`).  Every rank of a
 `parallel.disparity.check_disp_shape`, checked on every call before any
 collective.  The batch is the caller's: the `data` axis splits it in
 `entry.predict` and in the trainer's batch iterator.
+
+With `cfg.channel_tp` the `disp` axis splits channels instead (the JAX
+package's `GANet(cfg, mesh)` with `volume_sharding(mesh, channel_tp=True)`):
+every rank of a `disp` line builds its block of the cost volume's 2C
+channels from the whole features (through `comm.copy_in`, as for bins)
+and runs the aggregation on its block of every volume's channels over the
+`disp` group (`layers.shard_channels`, `parallel/channels.py`); every
+rank of the line returns the same maps.  Every width of the volumes must
+meet `parallel.channels.check_channel_shape`, checked on every call.
+Without a mesh, or with `disp` 1, `channel_tp` changes nothing.
 """
 
 from __future__ import annotations
@@ -49,8 +59,15 @@ from ganet_tpu_torch.config import ModelConfig
 from ganet_tpu_torch.models.aggregation import CostAggregation
 from ganet_tpu_torch.models.feature import FeatureNet
 from ganet_tpu_torch.models.guidance import GuidanceNet
-from ganet_tpu_torch.models.layers import BasicConv, shard_disp, shard_space, torch_dtype
+from ganet_tpu_torch.models.layers import (
+    BasicConv,
+    shard_channels,
+    shard_disp,
+    shard_space,
+    torch_dtype,
+)
 from ganet_tpu_torch.ops.cost_volume import build_cost_volume_ncdhw
+from ganet_tpu_torch.parallel.channels import channel_block, check_channel_shape
 from ganet_tpu_torch.parallel.comm import copy_in
 from ganet_tpu_torch.parallel.disparity import check_disp_shape, disp_block
 from ganet_tpu_torch.parallel.spatial import check_spatial_shape, row_block, space_size
@@ -68,7 +85,11 @@ class GANet(nn.Module):
         self.guidance = GuidanceNet(cfg)
         self.cost_agg = CostAggregation(cfg)
         shard_space(self.cost_agg, None if mesh is None else mesh.space_group)
-        shard_disp(self.cost_agg, None if mesh is None else mesh.disp_group)
+        if cfg.channel_tp:
+            tp = mesh is not None and mesh.size("disp") > 1
+            shard_channels(self.cost_agg, mesh.disp_group if tp else None)
+        else:
+            shard_disp(self.cost_agg, None if mesh is None else mesh.disp_group)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
         cfg = self.cfg
@@ -80,11 +101,16 @@ class GANet(nn.Module):
         B, H, W, _ = left.shape
         cfg.validate_image_shape(H, W)
         group = None if self.mesh is None else self.mesh.space_group
-        bins = None if self.mesh is None else self.mesh.disp_group
-        space, disp = space_size(group), space_size(bins)
+        line = None if self.mesh is None else self.mesh.disp_group
+        space, disp = space_size(group), space_size(line)
+        # The `disp` line splits either the channels or the bins.
+        chans = line if cfg.channel_tp and disp > 1 else None
+        bins = None if cfg.channel_tp else line
         if space > 1:
             check_spatial_shape(cfg, H, space)
-        if disp > 1:
+        if chans is not None:
+            check_channel_shape(cfg, disp)
+        elif disp > 1:
             check_disp_shape(cfg, disp)
         dtype = torch_dtype(cfg.compute_dtype)
         left = left.permute(0, 3, 1, 2).to(dtype)
@@ -104,7 +130,12 @@ class GANet(nn.Module):
                 "lg2": guidance["lg2"][:, :, 3 * a : 3 * b].contiguous(),
             }
         if disp > 1:
-            f_left, f_right = copy_in(f_left, bins), copy_in(f_right, bins)
+            # One copy_in for both views, so that its backward runs on
+            # every rank: a block of channels may use one view only.
+            C = f_left.shape[1]
+            f = copy_in(torch.cat([f_left, f_right], dim=1), line)
+            f_left, f_right = f[:, :C], f[:, C:]
         cv = build_cost_volume_ncdhw(f_left, f_right, cfg.disp_channels,
-                                     *disp_block(cfg.disp_channels, bins))
+                                     *disp_block(cfg.disp_channels, bins),
+                                     channels=channel_block(2 * f_left.shape[1], chans))
         return self.cost_agg(cv, guidance)

@@ -19,7 +19,12 @@ With a `space` group (`shard_space`, the sharded model), a BasicConv
 takes this rank's block of rows and exchanges the rows its padding needs
 with its neighbours (`parallel/spatial.py`); with a `disp` group
 (`shard_disp`) a 3D BasicConv takes this rank's block of disparity bins
-too, and exchanges bins likewise.
+too, and exchanges bins likewise.  With a channel group
+(`shard_channels`, channel tensor parallelism) a BasicConv takes this
+rank's block of its input's channels, gathers them, and makes its block
+of output channels with its block of the weights and of its BatchNorm,
+whose running statistics every rank keeps whole
+(`parallel/channels.py`).
 
 Submodules are named `conv` and `bn`; containers keep the JAX package's
 child names (`BasicConv_0`, `Conv2x_1`, ...) so that the weight bridge maps
@@ -37,7 +42,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ganet_tpu_torch.ops.normalize import at_least_f32
-from ganet_tpu_torch.parallel.comm import all_reduce_sum
+from ganet_tpu_torch.parallel.channels import channel_slice, gather_channels
+from ganet_tpu_torch.parallel.comm import all_gather_cat, all_reduce_sum
 from ganet_tpu_torch.parallel.spatial import halo_conv_same, halo_conv_transpose
 
 
@@ -57,8 +63,10 @@ def bn_affine(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.
 def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
     """Eval-mode BatchNorm over dim 1 rounded where flax's `BatchNorm`
     rounds: x * s + t taken in float32 (float64 for a float64 input) and
-    rounded to the input's dtype once."""
-    s, t = bn_affine(bn)
+    rounded to the input's dtype once.  With a `channel_group`
+    (`shard_channels`) x holds this rank's block of the channels."""
+    group = getattr(bn, "channel_group", None)
+    s, t = (channel_slice(v, group) for v in bn_affine(bn))
     shape = (1, -1) + (1,) * (x.dim() - 2)
     dt = at_least_f32(x).dtype
     s, t = s.to(dt).view(shape), t.to(dt).view(shape)
@@ -101,8 +109,11 @@ def sync_batch_norm(module: nn.Module, group) -> None:
     of disparity bins, so their moments sum over all three axes: over
     `data` alone each rank would normalise by its own block's moments.
     (While `disp` is 1 the whole mesh is the `data` x `space` plane,
-    `Mesh.volume_group`.)  This is the one place where the sharded model
-    does not take every BatchNorm over the mesh."""
+    `Mesh.volume_group`.)  Under channel tensor parallelism the `disp`
+    ranks hold other channels, whose sums must not be added together: the
+    aggregation's moments sum over `data` x `space` only.  This is the one
+    place where the sharded model does not take every BatchNorm over the
+    mesh."""
     for m in module.modules():
         if isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.bn_group = group
@@ -121,11 +132,18 @@ def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tens
     With a `bn_group` (`sync_batch_norm`) the moments are global: the
     sums of x and x^2 and the element count are summed over the group's
     ranks in one all-reduce, whose backward sums their cotangents, and a
-    recompute issues it again as the forward did."""
+    recompute issues it again as the forward did.
+
+    With a `channel_group` (`shard_channels`) x holds this rank's block of
+    the channels, normalised with that block of the scale and bias; the
+    block's moments are gathered over the channel group before the
+    running statistics move, so that every rank updates every channel
+    alike and holds the same bits."""
     dims = [0] + list(range(2, x.dim()))
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = at_least_f32(x)
     group = getattr(bn, "bn_group", None)
+    channels = getattr(bn, "channel_group", None)
     if group is None:
         m = xf.mean(dim=dims)
         ex2 = (xf * xf).mean(dim=dims)
@@ -138,11 +156,15 @@ def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tens
     v = torch.clamp_min(ex2 - m * m, 0.0)
     if not getattr(_recompute, "active", False):
         with torch.no_grad():
-            bn.running_mean.lerp_(m.to(bn.running_mean.dtype), bn.momentum)
-            bn.running_var.lerp_(v.to(bn.running_var.dtype), bn.momentum)
+            mv = torch.stack([m, v]).to(bn.running_mean.dtype)
+            if channels is not None:
+                mv = all_gather_cat(mv, 1, channels)
+            bn.running_mean.lerp_(mv[0], bn.momentum)
+            bn.running_var.lerp_(mv[1], bn.momentum)
             bn.num_batches_tracked += 1
-    s = bn.weight / torch.sqrt(v + bn.eps)
-    return ((xf - m.view(shape)) * s.view(shape) + bn.bias.view(shape)).to(x.dtype)
+    s = channel_slice(bn.weight, channels) / torch.sqrt(v + bn.eps)
+    bias = channel_slice(bn.bias, channels)
+    return ((xf - m.view(shape)) * s.view(shape) + bias.view(shape)).to(x.dtype)
 
 
 def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
@@ -152,14 +174,16 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
 
 def conv_same(
     x: torch.Tensor, conv: nn.Module, stride: int = 1, scale: torch.Tensor | None = None,
-    group=None, disp_group=None,
+    group=None, disp_group=None, channel_group=None,
 ) -> torch.Tensor:
     """`conv`'s weights applied with "SAME" padding in the input's dtype;
     with `scale`, each output channel's weights times it first, in float32.
     With a `space` group, x is this rank's block of rows and the H padding
     comes from its neighbours (`parallel.spatial.halo_conv_same`); with a
-    `disp_group`, its block of D bins likewise."""
-    return halo_conv_same(x, conv.weight, conv.bias, stride, scale, group, disp_group)
+    `disp_group`, its block of D bins likewise; with a `channel_group`,
+    the output is this rank's block of output channels."""
+    return halo_conv_same(x, conv.weight, conv.bias, stride, scale, group, disp_group,
+                          channel_group)
 
 
 def shard_space(module: nn.Module, group) -> None:
@@ -185,14 +209,28 @@ def shard_disp(module: nn.Module, group) -> None:
             m.disp_group = group
 
 
+def shard_channels(module: nn.Module, group) -> None:
+    """Every layer in `module` that takes a channel group (BasicConv, the
+    aggregation's SGA blocks and heads, and every BatchNorm) runs on this
+    rank's block of the channels of the volumes, over `group` (the mesh's
+    `disp` axis under channel tensor parallelism,
+    `parallel/channels.py`); None: on every channel.  Kept on each module,
+    as `shard_space`'s group."""
+    for m in module.modules():
+        if hasattr(m, "channel_group") or isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.channel_group = group
+
+
 class BasicConv(nn.Module):
     """Conv or stride-2 deconv (2D or 3D) + optional BatchNorm + optional
     ReLU; on this rank's block of rows when it has a `space_group`
-    (`shard_space`), and of disparity bins when it has a `disp_group`
-    (`shard_disp`)."""
+    (`shard_space`), of disparity bins when it has a `disp_group`
+    (`shard_disp`), and of channels when it has a `channel_group`
+    (`shard_channels`)."""
 
     space_group = None
     disp_group = None
+    channel_group = None
 
     def __init__(
         self,
@@ -220,20 +258,26 @@ class BasicConv(nn.Module):
         bn_cls = nn.BatchNorm3d if is_3d else nn.BatchNorm2d
         self.bn = bn_cls(features, eps=1e-5, momentum=0.1) if use_bn else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        group, bins = self.space_group, self.disp_group
+    def forward(self, *parts: torch.Tensor) -> torch.Tensor:
+        """The layer on the concatenation of `parts` along the channels;
+        with a `channel_group`, each part is this rank's block of its
+        channels, and the output this rank's block of the output's."""
+        group, bins, chans = self.space_group, self.disp_group, self.channel_group
+        x = gather_channels(parts, chans)
         if self.deconv:
-            x = halo_conv_transpose(x, self.conv.weight, self.conv.bias, group, bins)
+            x = halo_conv_transpose(x, self.conv.weight, self.conv.bias, group, bins, chans)
         elif x.dim() == 5 and self.bn is not None and not self.bn.training:
             # An eval BatchNorm after a 3D conv is folded into the conv, as
             # the JAX package's FoldableBN does: weights times s in float32,
             # then + t in the input's dtype.
             s, t = bn_affine(self.bn)
-            x = conv_same(x, self.conv, self.stride, scale=s, group=group, disp_group=bins)
-            x = x + t.to(x.dtype).view(1, -1, 1, 1, 1)
+            x = conv_same(x, self.conv, self.stride, scale=s, group=group, disp_group=bins,
+                          channel_group=chans)
+            x = x + channel_slice(t, chans).to(x.dtype).view(1, -1, 1, 1, 1)
             return F.relu(x) if self.relu else x
         else:
-            x = conv_same(x, self.conv, self.stride, group=group, disp_group=bins)
+            x = conv_same(x, self.conv, self.stride, group=group, disp_group=bins,
+                          channel_group=chans)
         if self.bn is not None:
             x = batch_norm(x, self.bn)
         if self.relu:
@@ -265,7 +309,7 @@ class Conv2x(nn.Module):
         x = self.BasicConv_0(x)
         if x.shape[2:] != rem.shape[2:]:
             raise ValueError(f"Conv2x skip mismatch: {tuple(x.shape)} vs rem {tuple(rem.shape)}")
-        return self.BasicConv_1(torch.cat([x, rem.to(x.dtype)], dim=1))
+        return self.BasicConv_1(x, rem.to(x.dtype))
 
 
 def channel_schedule(base: int, levels: int) -> list[int]:

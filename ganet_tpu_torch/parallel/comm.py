@@ -10,7 +10,9 @@ and upsample (`parallel/spatial.py`); `all_gather_cat` joins the ranks'
 blocks of an output.  Three differentiable boundary ops join the part of
 the model that runs replicated on every rank of a `disp` line to the part
 that holds blocks of disparity bins (`gather_blocks`, `take_block`,
-`copy_in`).  A data-parallel step sums
+`copy_in`); two more join the blocks of channels of channel tensor
+parallelism (`parallel/channels.py`) across a convolution whose weights
+differ per rank (`column_gather`, `row_reduce`).  A data-parallel step sums
 BatchNorm moments, valid-pixel counts, metrics and gradients over the
 `data` axis with `all_reduce_` (in place) and `all_reduce_sum`
 (differentiable).
@@ -238,6 +240,66 @@ def copy_in(x: torch.Tensor, group=None) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _CopyIn.apply(x, group)
+
+
+class _ColumnGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group):
+        ctx.dim, ctx.n, ctx.group = dim, x.shape[dim], group
+        ctx.idx = group_rank(group)[0]
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # Each rank's cotangent of the joined tensor covers only what its
+        # own op made of it: the whole cotangent is their sum, and this
+        # rank's input is its block of that (2-byte floats summed in
+        # float32).  gloo has no reduce-scatter: an all-reduce, then the
+        # block.
+        acc = g.float() if g.dtype in (torch.bfloat16, torch.float16) else g
+        acc = all_reduce_(acc.clone(memory_format=torch.contiguous_format), ctx.group)
+        return acc.narrow(ctx.dim, ctx.idx * ctx.n, ctx.n).to(g.dtype).contiguous(), None, None
+
+
+class _RowReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group):
+        acc = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        return all_reduce_(acc.clone(memory_format=torch.contiguous_format), group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # The sum is replicated over the group, so its cotangent is the
+        # whole cotangent on every rank, and each addend's is that same
+        # cotangent.
+        return g, None
+
+
+def column_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's block `x` along `dim` joined in the rank order of
+    `group`, as the input of an op that then makes only this rank's own
+    part of its output (a column-parallel convolution: each rank's weights
+    are its block of output channels).  Differentiable: the backward sums
+    the ranks' cotangents of the joined tensor and gives each rank its
+    block (a reduce-scatter), where `gather_blocks`, whose output feeds an
+    op replicated on every rank, takes the block of one rank's.  `x`
+    itself for no group or a group of one rank."""
+    if group_size(group) == 1:
+        return x
+    return _ColumnGather.apply(x, dim, group)
+
+
+def row_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of `group` of each rank's partial `x` (a
+    row-parallel convolution's output over this rank's block of input
+    channels), replicated on every rank; 2-byte floats summed in float32.
+    Differentiable: every rank goes on with the same sum, so the backward
+    is the identity, where `all_reduce_sum`'s sums the cotangents of ranks
+    that go on with different values.  `x` itself for no group or a
+    group of one rank."""
+    if group_size(group) == 1:
+        return x
+    return _RowReduce.apply(x, group)
 
 
 def _halo_swap(lo: torch.Tensor, hi: torch.Tensor, group):

@@ -16,7 +16,8 @@ Each case is a dict:
   model     preset name ("GANet_small", "GANet_deep"), with
   size      (H, W), max_disp, dtype ("float32", "bfloat16", or "float64",
             which measures the float32 noise of the others), remat,
-            left_right, lr (step);
+            left_right, lr (step), channel_tp (the `disp` axis splits
+            channels, default False);
   batch     the global batch, which N divides;
   steps     train steps, each on its own global batch;
   valid     "dense", or "unequal": the second half of each batch (the
@@ -76,7 +77,8 @@ def train_config(case: dict, data: int = 1, space: int = 1, disp: int = 1) -> Tr
     """The `TrainConfig` of a step case on the mesh (data, space, disp)."""
     H, W = case["size"]
     model = model_config(case["model"], max_disp=case["max_disp"],
-                         compute_dtype=case.get("dtype", "float32"), remat=case.get("remat", "none"))
+                         compute_dtype=case.get("dtype", "float32"), remat=case.get("remat", "none"),
+                         channel_tp=case.get("channel_tp", False))
     return TrainConfig(
         model=model,
         data=DataConfig(crop_height=H, crop_width=W, kind="synthetic",

@@ -16,12 +16,14 @@ splits the conv phase's disparity bins, as the JAX package's
 `volume_sharding` lays them out, `P("data", "disp", "space")`: each rank
 of a `disp` line holds one block of the bins of every volume from the
 cost volume to the heads' C -> 1 convs (`parallel/disparity.py`), and
-the line gathers the bins around each SGA sweep and each head.  The same
-blocks train (`train/trainer.py`): the loss and the metrics, which the
-heads compute replicated over `disp`, sum over `volume_group`, the plane
-of `data` x `space` ranks that share a `disp` index; the aggregation's
-BatchNorm moments and the gradients sum over the whole mesh
-(`world_group`).
+the line gathers the bins around each SGA sweep and each head.  Under
+`ModelConfig.channel_tp` the `disp` axis splits the same volumes'
+channels instead (`parallel/channels.py`).  The same blocks train
+(`train/trainer.py`): the loss and the metrics, which the heads compute
+replicated over `disp`, sum over `volume_group`, the plane of `data` x
+`space` ranks that share a `disp` index; the gradients, and the
+aggregation's BatchNorm moments of blocks of bins, sum over the whole
+mesh (`world_group`); those of blocks of channels over `volume_group`.
 
 The JAX module's `batch_sharding`, `volume_sharding` and `constrain_*`
 helpers are GSPMD sharding annotations, which have no counterpart in

@@ -37,8 +37,14 @@ The H rows are then taken of the D-haloed block, so that the corner
 elements a 3x3x3 kernel needs under both groups arrive in the two
 exchanges, with no third.
 
+The two convolutions take a `channel_group` too (channel tensor
+parallelism, `parallel/channels.py`): x then holds every input channel
+(the caller gathers its blocks, `channels.gather_channels`) and the output
+is this rank's block of the output channels, made with that block of the
+weights, bias and scale; the H halos of a `space` group work as before.
+
 Each op with `group` None, or a group of one rank, is the unsharded op
-(and likewise for `disp_group`).
+(and likewise for `disp_group` and `channel_group`).
 `row_block` gives a rank's rows, and `check_spatial_shape` the rule that
 the model's shapes must meet to be sharded.
 """
@@ -53,6 +59,7 @@ import torch.nn.functional as F
 
 from ganet_tpu_torch.ops.disparity import trilinear_upsample
 from ganet_tpu_torch.parallel import comm
+from ganet_tpu_torch.parallel.channels import channel_slice
 
 
 def same_padding(
@@ -134,12 +141,18 @@ def halo_conv_same(
     scale: torch.Tensor | None = None,
     group=None,
     disp_group=None,
+    channel_group=None,
 ) -> torch.Tensor:
     """`weight` applied to this rank's block x (B, C, [D,] Hl, W) with
     "SAME" padding, in x's dtype; with `scale`, each output channel's
     weights times it first, in float32.  With a `disp_group`, x is this
-    rank's block of D bins too."""
+    rank's block of D bins too; with a `channel_group`, the output is this
+    rank's block of output channels."""
     k = weight.shape[-1]
+    if channel_group is not None:
+        weight = channel_slice(weight, channel_group)
+        scale = None if scale is None else channel_slice(scale, channel_group)
+        bias = None if bias is None else channel_slice(bias, channel_group)
     if scale is not None:
         weight = weight * scale.view((-1,) + (1,) * (weight.dim() - 1))
     weight = weight.to(x.dtype)
@@ -168,13 +181,17 @@ def halo_conv_same(
 
 def halo_conv_transpose(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, group=None,
-    disp_group=None,
+    disp_group=None, channel_group=None,
 ) -> torch.Tensor:
     """The stride-2, kernel-4, padding-1 transposed conv of this rank's
     block x (B, C, [D,] Hl, W), in x's dtype: its block of 2 Hl rows (and
-    with a `disp_group`, of its block of Dl bins, 2 Dl bins)."""
+    with a `disp_group`, of its block of Dl bins, 2 Dl bins; with a
+    `channel_group`, of its block of output channels)."""
     if weight.shape[-1] != 4:
         raise ValueError(f"the deconvolution has kernel 4, got {tuple(weight.shape)}")
+    if channel_group is not None:
+        weight = channel_slice(weight, channel_group, dim=1)
+        bias = None if bias is None else channel_slice(bias, channel_group)
     weight = weight.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     fn = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d

@@ -11,6 +11,7 @@ its flags and defaults), run as `python -m ganet_tpu_torch.train`:
     python -m ganet_tpu_torch.train --mesh_data 4 --batchSize 8 ...
     python -m ganet_tpu_torch.train --mesh_space 2 --mesh_data 2 --batchSize 4 ...
     python -m ganet_tpu_torch.train --mesh_disp 2 ...
+    python -m ganet_tpu_torch.train --mesh_disp 2 --channel_tp 1 ...
     torchrun --nproc_per_node 4 -m ganet_tpu_torch.train --distributed 1 \
         --mesh_data 4 --batchSize 8 ...
 
@@ -33,12 +34,15 @@ card of its own and by gloo otherwise.  --batchSize is the global batch,
 which N must divide; S must share --crop_height by the model's shape rule
 (`parallel.spatial.check_spatial_shape`) and P the bins of --max_disp by
 its disparity rule (`parallel.disparity.check_disp_shape`); each fault
-exits before this host starts a rank.  With --distributed 1 this process
+exits before this host starts a rank.  --channel_tp 1 (channel tensor
+parallelism) makes the P ranks of `disp` split the channels of the
+aggregation's volumes instead of their bins, as `train.py`'s flag does;
+P must then divide every width of those volumes
+(`parallel.channels.check_channel_shape`), else the run exits before a
+rank starts.  With --distributed 1 this process
 is one rank of a world that is already running (`env://`, as `torchrun`
 sets it up), whose size must be N x S x P.  Rank 0 alone prints, logs and
-writes the checkpoints, which hold no trace of the mesh.  --channel_tp 1
-raises NotImplementedError: channel tensor parallelism (ROADMAP queue 1
-#8b) is not ported.
+writes the checkpoints, which hold no trace of the mesh.
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mesh_disp", type=int, default=1,
                    help="ranks that split the cost volume's disparity bins")
     p.add_argument("--channel_tp", type=int, default=0,
-                   help="channel TP: not ported (ROADMAP queue 1 #8b)")
+                   help="channel tensor parallelism: --mesh_disp splits the aggregation's channels")
     p.add_argument("--eval", type=int, default=0, help="validate after training")
     p.add_argument("--lr_decay_epoch", type=int, default=0)
     p.add_argument("--bf16", type=int, default=0, help="bfloat16 compute")
@@ -114,12 +118,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_config(args: argparse.Namespace) -> TrainConfig:
-    """The `TrainConfig` of the flags; raises NotImplementedError for those
-    whose paths are not ported."""
-    if args.channel_tp:
-        raise NotImplementedError(
-            "--channel_tp 1: channel tensor parallelism (ROADMAP queue 1 #8b) is not ported yet"
-        )
+    """The `TrainConfig` of the flags."""
     mesh = MeshConfig(data=args.mesh_data, space=args.mesh_space, disp=args.mesh_disp)
     kind = (
         "synthetic"
@@ -136,6 +135,7 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         compute_dtype="bfloat16" if args.bf16 else "float32",
         impl=JAX_IMPLS.get(args.sga_impl, args.sga_impl),
         remat=args.remat,
+        channel_tp=bool(args.channel_tp),
     )
     return TrainConfig(
         model=model,
@@ -166,7 +166,8 @@ def check_flags(cfg: TrainConfig) -> None:
     """Exit (SystemExit) for flags that no mesh can train: a mesh axis
     below 1, a --batchSize that --mesh_data does not divide, a
     --crop_height that --mesh_space cannot share, a --max_disp whose bins
-    --mesh_disp cannot share."""
+    --mesh_disp cannot share, or under --channel_tp 1 a model whose
+    channels it cannot split."""
     mesh = cfg.mesh
     if min(mesh.data, mesh.space, mesh.disp) < 1:
         raise SystemExit(f"--mesh_data {mesh.data} --mesh_space {mesh.space} --mesh_disp "
@@ -193,7 +194,7 @@ def run(rank: int, world: int, args: argparse.Namespace) -> Trainer:
             f"model={cfg.model.name} max_disp={cfg.model.max_disp} "
             f"crop={cfg.data.crop_height}x{cfg.data.crop_width} batch={cfg.batch_size} "
             f"remat={cfg.model.remat} mesh_data={cfg.mesh.data} mesh_space={cfg.mesh.space} "
-            f"mesh_disp={cfg.mesh.disp} "
+            f"mesh_disp={cfg.mesh.disp} channel_tp={int(cfg.model.channel_tp)} "
             f"device={trainer.device} "
             f"start_epoch={trainer.start_epoch}"
         )

@@ -22,7 +22,8 @@ on its block of rows and bins (`models/ganet.py`), and holds its rows of
 the heads' maps, which every rank of a `disp` line computes alike,
 against its rows of the targets (`row_block`).  Train-mode BatchNorm
 takes its moments over the global tensor (`sync_batch_norm`: the 2D
-part's over `data`, the aggregation's over the whole mesh), the loss
+part's over `data`, the aggregation's over the whole mesh, or over
+`data` x `space` under channel tensor parallelism), the loss
 divides by the global batch's valid pixels, the loss, the valid count
 and the metrics sum over the `data` x `space` plane (`Mesh.volume_group`),
 the gradients are summed over the whole mesh after backward (one flat
@@ -36,6 +37,12 @@ each rank's own: on the card cuDNN's default algorithms do not repeat
 bit for bit, so the ranks of a `space` x `disp` plane, each running that
 part whole, hold them equal up to float noise; a checkpoint holds rank
 0's.
+
+With `cfg.model.channel_tp` the `disp` axis splits the aggregation's
+channels instead of its bins (`parallel/channels.py`); the gradients and
+the loss sum as above, and every rank of a `disp` line gathers the
+running statistics of the aggregation's BatchNorm, which are then the
+same bits on every rank.
 
 `Trainer` trains from a `TrainConfig`: its datasets (files or synthetic)
 through `BatchIterator` (each rank reads its slice of the global batch),
@@ -62,6 +69,7 @@ from ganet_tpu_torch.data.dataset import get_test_set, get_training_set
 from ganet_tpu_torch.data.pipeline import BatchIterator, process_coordinates
 from ganet_tpu_torch.entry import Device, build_model, resolve_device
 from ganet_tpu_torch.models.layers import sync_batch_norm
+from ganet_tpu_torch.parallel.channels import check_channel_shape
 from ganet_tpu_torch.parallel.comm import all_reduce_, all_reduce_grads
 from ganet_tpu_torch.parallel.disparity import check_disp_shape
 from ganet_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -83,11 +91,15 @@ Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 def check_train_shape(cfg: TrainConfig) -> None:
     """Raise ValueError, naming the sizes that pass, unless `cfg.mesh.space`
     ranks can share the crop height (`check_spatial_shape`) and
-    `cfg.mesh.disp` ranks the cost volume's bins (`check_disp_shape`).  The
-    test set is padded to the crop, so one check covers training and
+    `cfg.mesh.disp` ranks the cost volume's bins (`check_disp_shape`), or
+    under `channel_tp` every volume's channels (`check_channel_shape`).
+    The test set is padded to the crop, so one check covers training and
     evaluation."""
     check_spatial_shape(cfg.model, cfg.data.crop_height, cfg.mesh.space)
-    check_disp_shape(cfg.model, cfg.mesh.disp)
+    if cfg.model.channel_tp:
+        check_channel_shape(cfg.model, cfg.mesh.disp)
+    else:
+        check_disp_shape(cfg.model, cfg.mesh.disp)
 
 
 def train_mesh(mesh: MeshConfig) -> Optional[Mesh]:
@@ -109,7 +121,9 @@ def create_train_state(
     `mesh` is this rank's place in `cfg.mesh` (default `train_mesh(cfg.mesh)`),
     whose model is this rank's part of the sharded model.  Its BatchNorm
     takes two groups (`sync_batch_norm`): the 2D part's moments sum over
-    `data`, the aggregation's over the whole mesh.  The state's steps sum
+    `data`, the aggregation's over the whole mesh, or under `channel_tp`
+    over `data` x `space` (`Mesh.volume_group`), since the ranks of a
+    `disp` line then hold other channels.  The state's steps sum
     the loss and the metrics over `data` x `space` (`Mesh.volume_group`)
     and the gradients over the whole mesh, and the ranks' initial
     parameters and buffers are compared bit for bit over the whole mesh:
@@ -120,7 +134,10 @@ def create_train_state(
     if mesh is not None:
         sync_batch_norm(model, mesh.data_group if mesh.size("data") > 1 else None)
         group = mesh.volume_group
-        sync_batch_norm(model.cost_agg, mesh.world_group)
+        if not cfg.model.channel_tp:
+            sync_batch_norm(model.cost_agg, mesh.world_group)
+        elif mesh.size("data") * mesh.size("space") > 1:
+            sync_batch_norm(model.cost_agg, group)
         space = mesh.space_group if mesh.size("space") > 1 else None
         digests = [None] * dist.get_world_size()
         dist.all_gather_object(digests, model_digest(model))
@@ -197,6 +214,20 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Batch], Dict[str,
     of the line, so the mesh's sum counts it P times and is divided by P:
     on the card, where cuDNN's replicated runs need not agree bit for
     bit, that is their mean, the same bits on every rank.
+
+    Under `channel_tp` the same sums hold with channels for bins.  A
+    blocked 3D conv's gradient on a rank covers its block of output
+    channels' weights, and its BatchNorm's scale and bias their block:
+    `column_gather`'s backward sums the ranks' cotangents of the gathered
+    input and hands each rank its block, so each rank's block of a volume
+    gets its whole derivative.  A head's C -> 1 conv runs on the rank's
+    block of input channels (row-parallel) and `row_reduce`'s backward
+    hands each rank the replicated cotangent of the sum, so its gradient
+    covers that block of its weights.  So every aggregation parameter's
+    gradient is a block, and the mesh's sum is the whole; the 2D part is
+    reached through `copy_in` and `take_block` (the SGA weights), whose
+    backward gives every rank the whole derivative, and the mesh's sum is
+    divided by P as above.
     """
     left_right = cfg.data.left_right
 

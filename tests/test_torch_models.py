@@ -48,14 +48,13 @@ def _jax_eval(jmod, *args):
 
 @pytest.mark.parametrize("name", sorted(J_PRESETS))
 def test_presets_match(name):
-    """Every field the port keeps equals the JAX preset's; the port's only
-    renamed field is `impl` (JAX `sga_impl`)."""
+    """Every field equals the JAX preset's, `channel_tp` included; the
+    port's only renamed field is `impl` (JAX `sga_impl`)."""
     assert sorted(MODEL_PRESETS) == sorted(J_PRESETS)
     ours = dataclasses.asdict(MODEL_PRESETS[name]())
     theirs = dataclasses.asdict(J_PRESETS[name]())
     assert ours.pop("impl") == theirs.pop("sga_impl") == "auto"
-    assert ours == {k: v for k, v in theirs.items() if k in ours}
-    assert set(theirs) - set(ours) == {"channel_tp"}  # the mesh slices
+    assert ours == theirs and ours["channel_tp"] is False
 
 
 # (in, features, kernel, stride, is_3d, deconv, relu, input shape NHWC/NDHWC)

@@ -274,7 +274,7 @@ def test_dryrun_of_eight_raises_before_any_rank_starts():
         mine, theirs = dataclasses.asdict(cfg), dataclasses.asdict(ref)
         j_model = theirs.pop("model")
         assert mine.pop("model") == {
-            **{k: v for k, v in j_model.items() if k not in ("sga_impl", "channel_tp")},
+            **{k: v for k, v in j_model.items() if k != "sga_impl"},
             "impl": {"pallas": "kernel", "scan": "torch", "auto": "auto"}[j_model["sga_impl"]]}
         assert not j_model["channel_tp"]
         assert {k: v for k, v in mine.items() if k != "save_path"} == {

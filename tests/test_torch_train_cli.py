@@ -4,8 +4,8 @@ repo's `train.py`, on the CPU.
 For a table of command lines (the reference's at `train.py:7-10` among
 them) the port's `build_config` gives `train.py`'s `TrainConfig` field
 for field; the model's `impl` stands for JAX's `sga_impl` (scan runs the
-plain versions, pallas the kernels), and `channel_tp`, which the port
-lacks, is off.  --channel_tp 1, whose path is not ported, raises.  Then
+plain versions, pallas the kernels), and --channel_tp 1 sets
+`channel_tp` as there.  Then
 the CLI trains GANet_small for 2 steps on synthetic data and writes a
 checkpoint that the port's predict CLI loads; trains it on 2 ranks
 (--mesh_data 2, this process rank 0) and resumes the checkpoint on one
@@ -65,7 +65,7 @@ def test_build_config_matches_train_py(name):
     ref = dataclasses.asdict(j_train.build_config(j_train.parse_args(argv)))
     ref_model = ref.pop("model")
     assert mine.pop("model") == {
-        **{k: v for k, v in ref_model.items() if k not in ("sga_impl", "channel_tp")},
+        **{k: v for k, v in ref_model.items() if k != "sga_impl"},
         "impl": IMPL[ref_model["sga_impl"]],
     }
     assert ref_model["channel_tp"] is False
@@ -80,24 +80,22 @@ def test_flags_and_defaults_match_train_py():
 
 
 @pytest.mark.parametrize("argv", [["--mesh_space", "2", "--mesh_disp", "2"], ["--mesh_disp", "2"],
-                                  ["--channel_tp", "1"]],
-                         ids=lambda a: a[0][2:])
+                                  ["--channel_tp", "1"], ["--mesh_disp", "2", "--channel_tp", "1"]],
+                         ids=["mesh_space", "mesh_disp", "channel_tp", "mesh_disp_channel_tp"])
 def test_unported_flags_raise(argv):
-    """--mesh_disp is ported: its configs are train.py's, as in
-    test_build_config_matches_train_py; --channel_tp 1 still raises."""
-    ref = j_train.build_config(j_train.parse_args(argv))  # the reference takes them
-    if "--channel_tp" in argv:
-        with pytest.raises(NotImplementedError, match="queue 1 #8b"):
-            build_config(parse_args(argv))
-        return
+    """The flags of the mesh slices, once unported, now all ported: their
+    configs are train.py's, as in test_build_config_matches_train_py, and
+    --channel_tp 1 sets the model's `channel_tp`."""
+    ref = dataclasses.asdict(j_train.build_config(j_train.parse_args(argv)))
     mine = dataclasses.asdict(build_config(parse_args(argv)))
-    ref = dataclasses.asdict(ref)
     ref_model = ref.pop("model")
     assert mine.pop("model") == {
-        **{k: v for k, v in ref_model.items() if k not in ("sga_impl", "channel_tp")},
+        **{k: v for k, v in ref_model.items() if k != "sga_impl"},
         "impl": IMPL[ref_model["sga_impl"]],
     }
-    assert mine == ref and mine["mesh"]["disp"] == 2
+    assert mine == ref
+    assert ref_model["channel_tp"] is ("--channel_tp" in argv)
+    assert mine["mesh"]["disp"] == (2 if "--mesh_disp" in argv else 1)
 
 
 @pytest.mark.parametrize("argv, words", [
@@ -106,13 +104,16 @@ def test_unported_flags_raise(argv):
     (["--mesh_data", "2", "--batchSize", "3"], "--batchSize 3 must be divisible by --mesh_data 2"),
     (["--mesh_disp", "3"], "disp may be [1, 2, 4, 8]"),
     (["--mesh_disp", "2", "--max_disp", "36"], "disp 2 cannot share max_disp 36"),
-], ids=["space4_at_240", "space2_at_264", "batch", "disp3_at_192", "disp2_at_36"])
+    (["--mesh_disp", "3", "--channel_tp", "1"], "widths [64, 32, 48, 64, 96] (the cost volume's"),
+], ids=["space4_at_240", "space2_at_264", "batch", "disp3_at_192", "disp2_at_36", "channel_tp3"])
 def test_flags_no_mesh_can_train_exit_before_any_rank(argv, words, monkeypatch):
     """GANet_deep's shape rule at the reference crop (H/3 = 80 rows in
     blocks of a multiple of 8: space 2 fits, 4 does not), its disparity
     rule (max_disp / 3 bins in blocks of a multiple of 8: 192 takes disp
-    1, 2, 4 or 8, 36 none above 1), and a batch that --mesh_data does not
-    divide: SystemExit, with the rule's message, before a rank starts."""
+    1, 2, 4 or 8, 36 none above 1), its channel rule under --channel_tp 1
+    (the cost volume's 64 channels do not split in 3), and a batch that
+    --mesh_data does not divide: SystemExit, with the rule's message,
+    before a rank starts."""
     import ganet_tpu_torch.train.cli as cli
 
     monkeypatch.setattr(cli, "launch", lambda *a, **k: pytest.fail("a rank was started"))
