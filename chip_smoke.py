@@ -170,7 +170,23 @@ CUDA toolkit.  Phases, each printing its lines:
      ganet_tpu_torch.train --mesh_disp 2 --channel_tp 1` for 2 steps from
      phase 15's files, its checkpoint read by the predict CLI on one
      device; (d) K1-K4 against their plain versions at every shape the
-     ranks launched them at.
+     ranks launched them at;
+ 21. the native decoder and feeding the step: (a) the host's g++ and
+     libpng, the build of `ganet_tpu_torch/csrc/ganet_io.cpp` (a failed
+     build fails the phase where both are present); (b) 4 seeded
+     SceneFlow-shaped pairs of 540x960 (PNG rows Sub, Up, Average and
+     Paeth in turn) decoded natively and in Python, bit for bit, as
+     240x528 training crops and padded to 576x960, and one KITTI-shaped
+     frame (375x1242 RGB and 16-bit disparity) padded to 384x1248, with
+     the time a sample of each path; (c) `python -m
+     ganet_tpu_torch.bench_input --samples 16 --batch 2` in process, its
+     JSON line; (d) GANet_deep at 240x528, max_disp 192, batch 2, bf16,
+     remat sga, 6 steps fed by `Trainer`'s `BatchIterator` (prefetch 2)
+     from those files natively, then 6 in Python: per step the time
+     blocked on the batch and the step's between synchronises, pairs/s
+     from files over the last 3, phase 15's launches a step (K1 56, K2 8,
+     K3 28, K4 4), and 12 native reads in the native run, none in the
+     Python one.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -2874,6 +2890,270 @@ def phase_channel_tp(torch, gen, smi, device: str = "cuda") -> None:
                         channel_tp=True)
 
 
+
+# Phase 21: the native decoder and feeding the step.  NATIVE_SAMPLES
+# SceneFlow-shaped pairs (SCENEFLOW_FRAME, uint8 noise, PNG rows Sub, Up,
+# Average and Paeth in turn: `bench_input.generate_dataset`), of which the
+# first NATIVE_PARITY are held native against Python as training crops and
+# padded to NATIVE_PAD, beside one KITTI-shaped frame padded to KITTI_CROP;
+# the first 2 x NATIVE_STEPS feed NATIVE_STEPS training steps (one epoch at
+# batch 2), once decoded natively and once in Python.
+NATIVE_SAMPLES = 16
+NATIVE_PARITY = 4
+NATIVE_PAD = (576, 960)
+NATIVE_STEPS = 6
+NATIVE_BATCH = 2
+NATIVE_MODEL, NATIVE_MAX_DISP = "GANet_deep", 192
+
+
+def toolchain() -> tuple:
+    """(g++ --version's first line or None, {header: whether g++ finds it}
+    for png.h and zlib.h, libpng's shared library as `ctypes.util` finds
+    it or None)."""
+    import ctypes.util
+    import shutil
+
+    gxx = shutil.which("g++")
+    found = {}
+    version = None
+    if gxx is not None:
+        version = subprocess.run([gxx, "--version"], capture_output=True, text=True).stdout
+        version = version.splitlines()[0] if version else gxx
+        for header in ("png.h", "zlib.h"):
+            found[header] = subprocess.run([gxx, "-E", "-x", "c++", "-"],
+                                           input=f"#include <{header}>\n",
+                                           capture_output=True, text=True).returncode == 0
+    lib = ctypes.util.find_library("png16") or ctypes.util.find_library("png")
+    return version, found, lib
+
+
+def native_parity(tag: str, make, n: int, native: bool, reps: int = 2) -> None:
+    """Samples of `make(use_native)` native against Python, bit for bit,
+    `reps` times over its `n` samples (the crops drawn alike), and the
+    mean time a sample of each; without the library, Python's alone."""
+    import numpy as np
+
+    paths = (True, False) if native else (False,)
+    ds = {u: make(u) for u in paths}
+    secs = {u: [] for u in paths}
+    for i in list(range(n)) * reps:
+        got = {}
+        for u in paths:
+            t0 = time.perf_counter()
+            got[u] = ds[u][i]
+            secs[u].append(time.perf_counter() - t0)
+        if not native:
+            continue
+        a, b = got[True], got[False]
+        same = sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in b)
+        if not same:
+            diff = {k: float(np.abs(a[k] - b[k]).max()) for k in b if a[k].shape == b[k].shape}
+            raise AssertionError(f"{tag}: sample {i} native != Python ({diff})")
+    mean = {u: sum(v) / len(v) for u, v in secs.items()}
+    what = f"{n} sample{'s' if n > 1 else ''} x {reps}"
+    if native:
+        log(f"{tag}: {what} native == Python bit for bit; a sample native "
+            f"{mean[True] * 1e3:.1f} ms, Python {mean[False] * 1e3:.1f} ms "
+            f"({mean[False] / mean[True]:.1f}x)")
+    else:
+        log(f"{tag}: {what} in Python (no native library): {mean[False] * 1e3:.1f} ms a sample")
+
+
+def write_kitti_mixed(root: str, frame, rng) -> str:
+    """One KITTI-2015-shaped frame under `root` (RGB views and 16-bit ground
+    truth, PNG rows Sub, Up, Average and Paeth in turn); returns its list."""
+    import os
+
+    import numpy as np
+
+    from ganet_tpu_torch.bench_input import ROW_FILTERS
+    from ganet_tpu_torch.data import png
+
+    H, W = frame
+    name = "000000_10.png"
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, sub))
+        if sub == "disp_occ_0":
+            gt = rng.random((H, W)) * 90 * (rng.random((H, W)) < 0.4)
+            img = (gt * 256).astype(np.uint16)
+        else:
+            img = rng.integers(0, 256, (H, W, 3), np.uint8)
+        png.write_png(os.path.join(root, sub, name), img, row_filters=ROW_FILTERS)
+    lst = root + ".list"
+    with open(lst, "w") as f:
+        f.write(name + "\n")
+    return lst
+
+
+def phase_native_io(torch, smi, device: str = "cuda") -> None:
+    """The native decoder on the card's host: (a) its toolchain and the
+    library's build; (b) native against Python bit for bit on SceneFlow-
+    and KITTI-shaped files with mixed row filters, and the time a sample of
+    each; (c) `python -m ganet_tpu_torch.bench_input` in process, its JSON
+    line; (d) NATIVE_STEPS training steps fed from files by `Trainer` and
+    its `BatchIterator` (prefetch 2), native then Python: per step the time
+    blocked on the batch and the step between synchronises, pairs/s from
+    files over the last 3, the launches of each step (phase 15's under
+    remat sga) and the native reads counted.  `device` "cpu" rehearses the
+    phase's control flow (no launches to count) at sizes set in the
+    module's constants."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from ganet_tpu_torch import bench_input
+    from ganet_tpu_torch import train as train_cli
+    from ganet_tpu_torch.data import native_io
+    from ganet_tpu_torch.data.dataset import StereoDataset
+    from ganet_tpu_torch.train import Trainer
+    from ganet_tpu_torch.utils.profiling import read_launches, reset_launches
+
+    frame, crop, pad, model, max_disp = (SCENEFLOW_FRAME, TRAIN_CROP, NATIVE_PAD, NATIVE_MODEL,
+                                         NATIVE_MAX_DISP)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    # (a) the toolchain, and the library.
+    gxx, headers, libpng = toolchain()
+    pngh = headers.get("png.h", False)
+    native = native_io.native_available()
+    built = native_io.build_seconds()
+    log(f"[21] host: {os.cpu_count()} CPUs ({len(os.sched_getaffinity(0))} usable); g++: {gxx}; "
+        + ", ".join(f"{h} {'found' if ok else 'not found'}" for h, ok in headers.items())
+        + f"; libpng's shared library {libpng or 'not found'}; library "
+        + (f"{native_io.library_path().name}, " + (f"built in this process in {built:.2f} s"
+           if built is not None else "found built") if native
+           else f"unavailable: {native_io.why_unavailable()}"))
+    if gxx and pngh and not native:
+        raise AssertionError(f"[21] g++ and libpng are here, yet the library did not build or "
+                             f"load: {native_io.why_unavailable()}")
+    if not native:
+        log("[21] no toolchain: the Python readers alone are timed")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "sceneflow")
+        t0 = time.perf_counter()
+        full = bench_input.generate_dataset(root, NATIVE_SAMPLES, *frame)
+        log(f"[21] wrote {NATIVE_SAMPLES} SceneFlow-shaped pairs {frame[0]}x{frame[1]} (noise, "
+            f"rows Sub/Up/Average/Paeth) in {time.perf_counter() - t0:.1f} s")
+        with open(full) as f:
+            lines = f.read().split()
+
+        def sublist(name, n):
+            path = os.path.join(root, name)
+            with open(path, "w") as f:
+                f.write("\n".join(lines[:n]) + "\n")
+            return path
+
+        # (b) native against Python, bit for bit.
+        parity = sublist("parity.list", NATIVE_PARITY)
+        for training, (ch, cw), what in ((True, crop, "training crops"), (False, pad, "padded")):
+            native_parity(
+                f"[21] SceneFlow {frame[0]}x{frame[1]}, {what} {ch}x{cw}",
+                lambda u: StereoDataset(data_path=root, list_path=parity, crop_height=ch,
+                                        crop_width=cw, kind="sceneflow", training=training,
+                                        max_disp=max_disp, seed=21, use_native=u),
+                NATIVE_PARITY, native)
+        (kf, kp), kroot = (KITTI_FRAME, KITTI_CROP), os.path.join(tmp, "kitti")
+        klist = write_kitti_mixed(kroot, kf, np.random.default_rng(21))
+        native_parity(
+            f"[21] KITTI {kf[0]}x{kf[1]} RGB + 16-bit disparity, padded {kp[0]}x{kp[1]}",
+            lambda u: StereoDataset(data_path=kroot, list_path=klist, crop_height=kp[0],
+                                    crop_width=kp[1], kind="kitti2015", training=False,
+                                    max_disp=max_disp, use_native=u),
+            1, native)
+
+        # (c) the bench, in process, on these files.
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench = bench_input.main(["--samples", str(NATIVE_SAMPLES), "--batch", str(NATIVE_BATCH),
+                                      "--crop_height", str(crop[0]), "--crop_width", str(crop[1]),
+                                      "--keep", root])
+        log(f"[21] python -m ganet_tpu_torch.bench_input --samples {NATIVE_SAMPLES} --batch "
+            f"{NATIVE_BATCH} ({time.perf_counter() - t0:.1f} s):")
+        log(out.getvalue().strip().splitlines()[-1])
+
+        # (d) feeding the step.
+        train_list = sublist("steps.list", NATIVE_BATCH * NATIVE_STEPS)
+        args = train_cli.parse_args([
+            "--model", model, "--max_disp", str(max_disp), "--bf16", "1" if cuda else "0",
+            "--batchSize", str(NATIVE_BATCH), "--crop_height", str(crop[0]),
+            "--crop_width", str(crop[1]), "--data_path", root, "--training_list", train_list,
+            "--val_list", train_list, "--save_path", os.path.join(tmp, "ckpt"),
+            "--device", device])
+        trainer = Trainer(train_cli.build_config(args), device=device)
+        want = STEP_LAUNCHES[trainer.cfg.model.remat]
+        if trainer.cfg.data.num_prefetch != 2 or trainer.cfg.model.remat != "sga":
+            raise AssertionError(f"[21] prefetch {trainer.cfg.data.num_prefetch}, remat "
+                                 f"{trainer.cfg.model.remat}: expected 2 and sga")
+        calls = []
+        decode = native_io.decode_sample
+
+        def counted(*a, **k):
+            calls.append(a[0])
+            return decode(*a, **k)
+
+        native_io.decode_sample = counted
+        runs = {}
+        try:
+            for use_native in ((True, False) if native else (False,)):
+                trainer.train_ds.use_native = use_native
+                calls.clear()
+                rows = []
+                it = iter(trainer.train_iter)
+                try:
+                    for i in range(NATIVE_STEPS):
+                        t0 = time.perf_counter()
+                        batch = next(it)
+                        blocked = time.perf_counter() - t0
+                        batch = {k: batch[k] for k in trainer.train_keys}
+                        sync()
+                        reset_launches()
+                        t0 = time.perf_counter()
+                        m = trainer.train_step(trainer.state, batch)
+                        sync()
+                        step = time.perf_counter() - t0
+                        launches = read_launches()
+                        loss = m["loss"].item()
+                        if cuda and launches != {k: want.get(k, 0) for k in launches}:
+                            raise AssertionError(f"[21] step {i + 1}: launched {launches}, expected {want}")
+                        if not np.isfinite(loss):
+                            raise AssertionError(f"[21] step {i + 1}: loss {loss}")
+                        rows.append((blocked, step))
+                finally:
+                    it.close()
+                reads = len(calls)
+                want_reads = NATIVE_BATCH * NATIVE_STEPS if use_native else 0
+                last = rows[-3:]
+                pairs = NATIVE_BATCH * len(last) / sum(b + t for b, t in last)
+                runs[use_native] = (rows, pairs)
+                log(f"[21] {'native' if use_native else 'Python'} decode, {model} "
+                    f"{crop[0]}x{crop[1]} D={max_disp} batch {NATIVE_BATCH} remat sga, prefetch 2: "
+                    + "; ".join(f"step {i + 1} blocked {b * 1e3:.1f} ms + step {t * 1e3:.1f} ms = "
+                                f"{(b + t) * 1e3:.1f}" for i, (b, t) in enumerate(rows))
+                    + f"; over the last 3: {pairs:.3f} pairs/s from files; native reads {reads} "
+                    f"(expected {want_reads}); launches a step {want if cuda else 'not counted (CPU)'}; "
+                    f"card {smi}")
+                if reads != want_reads:
+                    raise AssertionError(f"[21] {reads} native reads, expected {want_reads}")
+        finally:
+            native_io.decode_sample = decode
+            trainer.close()
+        step_rate = NATIVE_BATCH / min(t for _, t in runs[list(runs)[0]][0][-3:])
+        log(f"[21] the step alone {step_rate:.3f} pairs/s (min of the last 3); bench_input's "
+            f"value {bench['value']} pairs/s is {bench['value'] / step_rate:.2f}x it"
+            + (f"; from files: native {runs[True][1]:.3f}, Python {runs[False][1]:.3f} pairs/s"
+               if native else ""))
+        del trainer
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2965,6 +3245,9 @@ def main() -> int:
         log(f"[20] channel tensor parallelism on {CT_RANKS} ranks sharing the card and the train CLI "
             f"with --channel_tp 1 ({time.perf_counter() - t0:.1f} s)")
         phase_channel_tp(torch, gen, smi)
+    if want(21):
+        log(f"[21] the native decoder and feeding the step ({time.perf_counter() - t0:.1f} s)")
+        phase_native_io(torch, smi)
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

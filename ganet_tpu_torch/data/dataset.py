@@ -1,7 +1,9 @@
 """Stereo datasets from list files (SceneFlow, KITTI): a copy of
 `StereoDataset`, `get_training_set` and `get_test_set` in
-`ganet_tpu/data/dataset.py`, reading through the port's numpy PNG and PFM
-readers (no Pillow, no native decoder).
+`ganet_tpu/data/dataset.py`.  A sample is decoded by the native C++ core
+(`data/native_io.py`) where its library builds, as the JAX package's is,
+else by the port's numpy PNG and PFM readers (no Pillow); both give the
+same bits.
 
   * training: random crop to (crop_height, crop_width), per-channel
     normalisation; ground-truth disparity cropped identically.  The crop
@@ -83,15 +85,57 @@ class StereoDataset:
     # Also return the right-view ground truth as disparity_right /
     # valid_right (--left_right).  SceneFlow only.
     left_right: bool = False
+    # Decode in the native C++ core (csrc/ganet_io.cpp) when its library
+    # builds; falls back to the Python readers transparently.
+    use_native: bool = True
 
     def __post_init__(self):
         self.entries = read_list(self.list_path)
         self._rng = np.random.default_rng(self.seed)
+        self._size_cache = {}
         if self.left_right and self.kind != "sceneflow":
             raise ValueError(
                 "left_right requires right-view ground truth, which only"
                 " SceneFlow provides (KITTI publishes left-view GT only)"
             )
+
+    def _native_item(self, index: int, paths):
+        """The sample from the native core, or None where the Python path
+        reads it: no library, or a training frame smaller than the crop
+        (padded, then cropped, in Python; no crop drawn here).  The crop's
+        y then x come from `self._rng`, as in `_random_crop`."""
+        from ganet_tpu_torch.data import native_io
+
+        if not native_io.native_available():
+            return None
+        size = self._size_cache.get(index)
+        if size is None:
+            size = self._size_cache[index] = png.png_size(paths.left)
+        H, W = size
+        if self.training:
+            if H < self.crop_height or W < self.crop_width:
+                return None
+            y = int(self._rng.integers(0, H - self.crop_height + 1))
+            x = int(self._rng.integers(0, W - self.crop_width + 1))
+        else:
+            if H > self.crop_height or W > self.crop_width:
+                raise ValueError(
+                    f"image {H}x{W} larger than pad target {self.crop_height}x{self.crop_width}"
+                )
+            y = x = -1  # pad mode
+        sample = native_io.decode_sample(
+            paths.left,
+            paths.right,
+            paths.disparity,
+            disp_is_pfm=(self.kind == "sceneflow"),
+            crop_h=self.crop_height,
+            crop_w=self.crop_width,
+            crop_y=y,
+            crop_x=x,
+        )
+        disp = sample["disparity"]
+        sample["valid"] = ((disp > 0) & (disp < self.max_disp)).astype(np.float32)
+        return sample
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -103,6 +147,13 @@ class StereoDataset:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         paths = derive_paths(self.data_path, self.entries[index], self.kind)
+        if self.use_native and not self.left_right:
+            try:
+                sample = self._native_item(index, paths)
+            except IOError:
+                sample = None  # a file the core cannot read: the Python path
+            if sample is not None:
+                return sample
         left = png.read_image(paths.left)
         right = png.read_image(paths.right)
 

@@ -67,11 +67,19 @@ def _sources(name: str) -> list:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def source_digest(paths: Iterable[Path], flags: Iterable[str] = ()) -> str:
+    """12 hex digits of the SHA-256 of the files' bytes, in order, then of
+    the build flags: the tag that names a library built from them."""
     digest = hashlib.sha256()
-    for path in _sources(name):
+    for path in paths:
         digest.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    for flag in flags:
+        digest.update(flag.encode())
+    return digest.hexdigest()[:12]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(_sources(name))}.so"
 
 
 def _start(name: str):
