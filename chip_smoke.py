@@ -186,7 +186,20 @@ CUDA toolkit.  Phases, each printing its lines:
      blocked on the batch and the step's between synchronises, pairs/s
      from files over the last 3, phase 15's launches a step (K1 56, K2 8,
      K3 28, K4 4), and 12 native reads in the native run, none in the
-     Python one.
+     Python one;
+ 22. the training benchmarks (GANet_deep at 240x528, max_disp 192, bf16):
+     (a) `python -m ganet_tpu_torch.bench_train --remat none --batches
+     4,8,16 --steps 4` in a subprocess, its rows (ms a step, pairs/s, peak
+     memory; finite losses) and launches a step (K1 28, K2 4, K3 28, K4
+     4), the out-of-memory row, if any, last and "HBM-infeasible"; (b)
+     bench_train under remat sga at batches 8 and 16 in process, its
+     launches counted (56 / 8 / 28 / 4 a step); (c) `profile_train
+     --batch 4` under remat none, sga and full (forward, forward and
+     backward, whole step; the recompute tax), launches counted; (d) one
+     `torch.profiler` window (`utils.profiling.trace`) of a batch-4 step
+     under sga and one under none, device time by phase 9's groups and
+     their difference; (e) `bench_scaling --meshes 1,1,1 2,1,1` (GANet_small
+     48x96): finite losses, (2,1,1) plumbing only on one card.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  Any failed check raises and the script exits non-zero.  On
@@ -683,6 +696,26 @@ KERNEL_GROUPS = (
 )
 
 
+def device_groups(torch, prof) -> tuple:
+    """(kernels as (ms, count, name), device ms by `KERNEL_GROUPS` and
+    "other", total device ms) of a finished profiler window."""
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels.append((us / 1e3, evt.count, evt.key))
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for ms, _, key in kernels:
+        low = key.lower()
+        name = next((g for g, frags in KERNEL_GROUPS if any(f in low for f in frags)), "other")
+        groups[name] += ms
+    return kernels, groups, sum(ms for ms, _, _ in kernels)
+
+
 def profile_forward(torch, forward, tag: str = "[5] profile of one forward") -> None:
     """Device time of one call of `forward` by kernel, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -693,24 +726,10 @@ def profile_forward(torch, forward, tag: str = "[5] profile of one forward") -> 
         forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append((us / 1e3, evt.count, evt.key))
-    total = sum(ms for ms, _, _ in kernels)
+    kernels, groups, total = device_groups(torch, prof)
     if total == 0:
         log(f"{tag}: the profiler saw no device time")
         return
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups["other"] = 0.0
-    for ms, _, key in kernels:
-        low = key.lower()
-        name = next((g for g, frags in KERNEL_GROUPS if any(f in low for f in frags)), "other")
-        groups[name] += ms
     log(f"{tag} (profiler on): device time {total:.1f} ms in "
         f"{wall_ms:.1f} ms wall, device idle {100 * (1 - total / wall_ms):.1f}%; "
         + "; ".join(f"{g} {ms:.1f} ms" for g, ms in groups.items()))
@@ -2334,7 +2353,7 @@ SP_FRAME = (576, 960)
 SP_MAX_DISP = 192
 SP_F32_TOL = 2e-2  # px at the worst pixel: the model-level gate of phase 4 (PERF.md §2)
 SP_BF16_FACTOR = 1.5  # the rule of tests/test_torch_bf16.py
-SP_TIMED = 3
+SP_TIMED = 1  # timed forwards after the counted one (ranks time-slicing the card)
 SP_CLI_FRAME, SP_CLI_CROP, SP_CLI_FRAMES = (375, 1242), (384, 1248), 2
 # The CLI's PNGs on a mesh against the one-device CLI's: (a)'s float32 gate
 # plus the writer's truncation to 1/256 px.  The two forwards differ by
@@ -2433,14 +2452,14 @@ def sharded_forward_checks(torch, smi, tag: str, mesh: tuple, seed: int, want: d
             ref[dt] = predict(one, left, right).float().cpu()
         if cuda and dt == "bfloat16":
             times = []
-            for _ in range(SP_TIMED):
+            for _ in range(3):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 predict(one, left, right)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             log(f"{tag} one device, this process, GANet_deep {H}x{W} D={D} bf16 batch 1: "
-                f"{min(times):.1f} ms (min of {SP_TIMED}; all {', '.join(f'{t:.1f}' for t in times)})")
+                f"{min(times):.1f} ms (min of 3; all {', '.join(f'{t:.1f}' for t in times)})")
         del one
     if channel_tp:
         # (c) each rank's convolutions: the one device's, a block of channels each.
@@ -2580,7 +2599,7 @@ def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
 # that share the card, the train CLI with --mesh_space and the dryrun.
 ST_RANKS = 2
 ST_MAX_DISP = 192
-ST_TIMED = 3  # timed steps after the 2 counted ones: the min of the last 3 of 5
+ST_TIMED = 1  # timed steps after the 2 counted ones (ranks time-slicing the card: plumbing times)
 ST_CLI_STEPS = 2
 
 
@@ -3154,6 +3173,214 @@ def phase_native_io(torch, smi, device: str = "cuda") -> None:
         torch.cuda.empty_cache()
 
 
+# Phase 22: the training benchmarks at GANet_deep's training crop.  From
+# phase 15's peaks (remat none 13.09 GiB at batch 2 and 25.96 at 4; sga
+# 15.78 at 4), batch 8 needs about 52 GiB under none and batch 16 about
+# 103, above the card's 80 GB, so the probe under none should end in its
+# out-of-memory row at 16; under sga, 8 and 16 need about 31 and 63 GiB.
+TB_MODEL, TB_MAX_DISP = "GANet_deep", 192
+TB_NONE_BATCHES, TB_SGA_BATCHES, TB_PROFILE_BATCH = (4, 8, 16), (8, 16), 4
+TB_STEPS = 4
+TB_MESHES = ("1,1,1", "2,1,1")
+TB_SCALING_STEPS = 4  # bench_scaling's timed steps a mesh, after one warm-up step
+
+
+def bench_rows(tag: str, rows: list, cuda: bool) -> None:
+    """Log `bench_train`'s rows.  A measured row must have a finite loss and
+    on the card a positive peak; a failure row must be the last and say
+    that the batch does not fit the card's memory."""
+    import math
+
+    for i, r in enumerate(rows):
+        if "reason" in r:
+            log(f"{tag} batch {r['batch']} remat {r['remat']}: {r['reason']}; {r['error_head'][:200]}")
+            if i != len(rows) - 1 or not r["reason"].startswith("HBM-infeasible"):
+                raise AssertionError(f"{tag} batch {r['batch']}: a failure other than the probe's end "
+                                     f"at the card's memory: {r}")
+            continue
+        mem = r["runtime_memory"]
+        peak = mem.get("peak_bytes_in_use", 0)
+        log(f"{tag} batch {r['batch']} remat {r['remat']}: {r['ms_per_step']} ms a step (median of "
+            f"{TB_STEPS}), {r['pairs_per_s']} pairs/s, peak {peak / 2**30:.2f} GiB of "
+            f"{mem.get('bytes_limit', 0) / 2**30:.2f}, loss {r['loss']}, init {r['init_s']} s, "
+            f"first step {r['compile_s']} s")
+        if not math.isfinite(r["loss"]) or (cuda and peak <= 0):
+            raise AssertionError(f"{tag} batch {r['batch']}: loss {r['loss']}, peak {peak}")
+
+
+def phase_train_bench(torch, smi, device: str = "cuda") -> None:
+    """The training benchmarks (`python -m ganet_tpu_torch.bench_train`,
+    `.profile_train`, `.bench_scaling`): (a) bench_train's probe under
+    remat none in a subprocess (an out-of-memory error cannot fragment this
+    process's allocator), its rows and the launches a step on its `#`
+    lines; (b) bench_train under sga in process, its launches counted; (c)
+    profile_train's split under none, sga and full and the recompute tax;
+    (d) one profiler window (`utils.profiling.trace`) of a step under sga
+    and one under none, by phase 9's kernel groups, and their difference;
+    (e) bench_scaling on one card at the training crop, GANet_deep f32.
+    `device` "cpu" rehearses the phase's control flow (no launches or
+    memory to check) at sizes set in the module's constants."""
+    import ast
+    import io
+    import math
+    import os
+    import re
+    import tempfile
+
+    from ganet_tpu_torch import bench_scaling, bench_train, profile_train
+    from ganet_tpu_torch.config import DataConfig, TrainConfig, model_config
+    from ganet_tpu_torch.train import create_train_state, make_train_step
+    from ganet_tpu_torch.utils.profiling import reset_launches, synchronize, trace
+
+    cuda = device == "cuda"
+    (H, W), D, B = TRAIN_CROP, TB_MAX_DISP, TB_PROFILE_BATCH
+    model = ["--model", TB_MODEL, "--max_disp", str(D), "--height", str(H), "--width", str(W)]
+    dev = [] if cuda else ["--device", "cpu"]
+    if cuda:
+        torch.cuda.empty_cache()
+        log(f"[22] allocated when the phase starts: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def in_process(main, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = main(argv)
+        return result, [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+
+    # (a) the probe under remat none, in a subprocess.
+    argv = model + ["--remat", "none", "--batches", ",".join(map(str, TB_NONE_BATCHES)),
+                    "--steps", str(TB_STEPS)] + dev
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ganet_tpu_torch.bench_train"] + argv,
+                         capture_output=True, text=True, timeout=900,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    log(f"[22] (a) python -m ganet_tpu_torch.bench_train {' '.join(argv)}: exit {out.returncode} "
+        f"({time.perf_counter() - t0:.1f} s with its start)")
+    for line in out.stderr.splitlines():
+        if line.startswith("#"):
+            log(f"[22] (a) {line}")
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("[22] (a) bench_train failed")
+    none_rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    bench_rows("[22] (a)", none_rows, cuda)
+    measured = [r["batch"] for r in none_rows if "reason" not in r]
+    if not measured or measured != list(TB_NONE_BATCHES[:len(measured)]):
+        raise AssertionError(f"[22] (a) rows for batches {[r['batch'] for r in none_rows]}")
+    launches = [ast.literal_eval(m) for m in re.findall(r"launches a step: (\{.*\})", out.stderr)]
+    want = {k: STEP_LAUNCHES["none"].get(k, 0) for k in (launches or [{}])[0]}
+    if len(launches) < len(measured) or (cuda and any(n != want for n in launches)):
+        raise AssertionError(f"[22] (a) launches a step {launches}, expected {want} at each of "
+                             f"batches {measured}")
+
+    # (b) remat sga at the batches that none cannot hold, in process.
+    reset_launches()
+    t0 = time.perf_counter()
+    sga_rows, _ = in_process(bench_train.main, model + [
+        "--remat", "sga", "--batches", ",".join(map(str, TB_SGA_BATCHES)), "--steps", str(TB_STEPS)] + dev)
+    log(f"[22] (b) bench_train --remat sga --batches {','.join(map(str, TB_SGA_BATCHES))} in process "
+        f"({time.perf_counter() - t0:.1f} s)")
+    bench_rows("[22] (b)", sga_rows, cuda)
+    if [r["batch"] for r in sga_rows if "reason" not in r] != list(TB_SGA_BATCHES):
+        raise AssertionError(f"[22] (b) remat sga did not run every batch: {sga_rows}")
+    if cuda:
+        expect_launches(torch, f"[22] (b) {len(sga_rows)} batches x {1 + TB_STEPS} steps under remat sga",
+                        {k: n * len(sga_rows) * (1 + TB_STEPS) for k, n in STEP_LAUNCHES["sga"].items()})
+    by_batch = {r["batch"]: r for r in none_rows if "reason" not in r}
+    for r in sga_rows:
+        if r["batch"] in by_batch:
+            n = by_batch[r["batch"]]
+            log(f"[22] (b) batch {r['batch']}: sga {r['ms_per_step']} ms against none {n['ms_per_step']} "
+                f"(+{r['ms_per_step'] - n['ms_per_step']:.1f}), peak "
+                f"{r['runtime_memory'].get('peak_bytes_in_use', 0) / 2**30:.2f} against "
+                f"{n['runtime_memory'].get('peak_bytes_in_use', 0) / 2**30:.2f} GiB")
+
+    # (c) the split of a step by remat policy.
+    calls = profile_train.WARMUP + profile_train.CHAIN
+    split = {}
+    for remat in ("none", "sga", "full"):
+        reset_launches()
+        t0 = time.perf_counter()
+        row, _ = in_process(profile_train.main, model + ["--batch", str(B), "--remat", remat] + dev)
+        log(f"[22] (c) profile_train --batch {B} --remat {remat} ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(row))
+        if cuda:
+            expect_launches(
+                torch, f"[22] (c) remat {remat}: {calls} forwards, forward-backwards and steps each",
+                {k: calls * (FORWARD_LAUNCHES.get(k, 0) + 2 * n) for k, n in STEP_LAUNCHES[remat].items()})
+        figures = [row[k] for k in ("fwd_train_ms", "fwd_bwd_ms", "full_step_ms")]
+        if not all(math.isfinite(v) and v > 0 for v in figures):
+            raise AssertionError(f"[22] (c) remat {remat}: {row}")
+        split[remat] = row
+    for remat in ("sga", "full"):
+        tax = split[remat]["bwd_attrib_ms"] - split["none"]["bwd_attrib_ms"]
+        log(f"[22] (c) recompute tax of remat {remat} at batch {B}: bwd_attrib_ms "
+            f"{split[remat]['bwd_attrib_ms']} - {split['none']['bwd_attrib_ms']} = {tax:.1f} ms; "
+            f"full step {split[remat]['full_step_ms']} against {split['none']['full_step_ms']} ms")
+
+    # (d) where the recompute's device time goes: one window a policy.
+    windows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for remat in ("sga", "none"):
+            cfg = TrainConfig(
+                model=model_config(TB_MODEL, max_disp=D, compute_dtype="bfloat16", remat=remat),
+                data=DataConfig(crop_height=H, crop_width=W, kind="synthetic"), batch_size=B)
+            state = create_train_state(cfg, device)
+            step = make_train_step(cfg)
+            batch = bench_train.random_batch(B, H, W, D, torch.device(device))
+            step(state, batch)  # warm-up
+            with trace(os.path.join(tmp, remat)) as prof:
+                synchronize(device)
+                t0 = time.perf_counter()
+                step(state, batch)
+                synchronize(device)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            del state, batch
+            if cuda:
+                torch.cuda.empty_cache()
+            (path,) = os.listdir(os.path.join(tmp, remat))
+            kernels, groups, total = device_groups(torch, prof)
+            size = os.path.getsize(os.path.join(tmp, remat, path)) / 2**20
+            tag = f"[22] (d) one batch-{B} step under remat {remat}"
+            if total == 0:
+                log(f"{tag}: the profiler saw no device time ({wall_ms:.1f} ms wall; trace {size:.1f} MiB)")
+                continue
+            windows[remat] = groups
+            log(f"{tag} (profiler on, Chrome trace {size:.1f} MiB): device time {total:.1f} ms in "
+                f"{wall_ms:.1f} ms wall, device idle {100 * (1 - total / wall_ms):.1f}%; "
+                + "; ".join(f"{g} {ms:.1f} ms" for g, ms in groups.items()))
+            for ms, count, key in sorted(kernels, reverse=True)[:8]:
+                log(f"  {ms:8.2f} ms  x{count:<4d} {key[:110]}")
+    if len(windows) == 2:
+        log(f"[22] (d) sga - none, device ms by group (the recompute, and what it saves): "
+            + "; ".join(f"{g} {windows['sga'][g] - windows['none'][g]:+.1f}" for g in windows["sga"]))
+
+    # (e) the scaling sweep on this host's cards, at the training crop, with
+    # PyTorch's default float32 numerics (TF32 in cuDNN), as
+    # `python -m ganet_tpu_torch.bench_scaling` runs; the ranks take them.
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        rows, lines = in_process(bench_scaling.main, [
+            "--meshes", *TB_MESHES, "--model", TB_MODEL, "--crop_height", str(H), "--crop_width",
+            str(W), "--max_disp", str(D), "--steps", str(TB_SCALING_STEPS), "--warmup", "1"] + dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    for line in lines:
+        log(f"[22] (e) {json.dumps(line)}")
+    cards = torch.cuda.device_count() if cuda else 0
+    log(f"[22] (e) bench_scaling --meshes {' '.join(TB_MESHES)} --model {TB_MODEL} {H}x{W} D={D} f32, "
+        f"{TB_SCALING_STEPS} steps after 1 ({time.perf_counter() - t0:.1f} s, {cards} card(s))")
+    if len(rows) != len(TB_MESHES):
+        raise AssertionError(f"[22] (e) {len(rows)} rows for {len(TB_MESHES)} meshes")
+    for r in rows:
+        timed = r["devices"] <= cards
+        if (not math.isfinite(r["loss"]) or r["plumbing_only"] == timed
+                or (timed and not r["pairs_per_s"] > 0)):
+            raise AssertionError(f"[22] (e) mesh {r['mesh']} on {cards} card(s): {r}")
+    log(f"[22] card {smi}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3248,6 +3475,12 @@ def main() -> int:
     if want(21):
         log(f"[21] the native decoder and feeding the step ({time.perf_counter() - t0:.1f} s)")
         phase_native_io(torch, smi)
+    if want(22):
+        log(f"[22] the training benchmarks: bench_train, profile_train, bench_scaling "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t22 = time.perf_counter()
+        phase_train_bench(torch, smi)
+        log(f"[22] {time.perf_counter() - t22:.1f} s")
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0
