@@ -105,19 +105,21 @@ CUDA toolkit.  Phases, each printing its lines:
      counts (K1 and K2 twice a step under remat); and K1-K4 held against
      their plain versions at every volume shape those runs launched them
      at, float32 and bfloat16;
- 16. data-parallel training on 2 ranks that share the card over gloo,
-     started by `parallel/launch.py` (GANet_deep at 240x528, max_disp 192,
-     batch 1 a rank): (a) one float32 step (TF32 off, remat none) of the
-     ranks against one step of the same model on the global batch in this
-     process (loss, running statistics, global gradients, parameters; the
-     ranks' parameters the same bits); (b) `python -m ganet_tpu_torch.train
-     --mesh_data 2` in process (this process rank 0; bf16, remat sga, batch
-     2) on phase 15's SceneFlow-shaped files, 1 epoch of 4 steps with
-     evaluation (rows and checkpoints written once, by rank 0), and its
-     checkpoint resumed on one device; (c) each rank's launches a step
-     against their expected counts, its step time, gradient all-reduce time
-     and peak memory (two ranks on one card: not a multi-GPU time); then
-     K1-K4 against their plain versions at every volume shape the ranks
+ 16. data-parallel training on 2 ranks that share the card over gloo
+     (`sharded_step_checks`, the helper of phases 18-20, on the mesh (2, 1,
+     1); GANet_deep at 240x528, max_disp 192, global batch 2): (a) one
+     float32 step (TF32 off, remat none) of the ranks against one step of
+     the same model on the same batch in this process, which runs it twice
+     to show its own noise (loss, running statistics, gradients, the Adam
+     update's direction; the ranks' whole states the same bits); (b) each
+     rank's launches a step under none and sga, its bf16 step time (remat
+     sga), all-reduce time and peak memory (two ranks on one card: not a
+     multi-GPU time); (c) `python -m ganet_tpu_torch.train --mesh_data 2`
+     in process (this process rank 0; bf16, remat sga, batch 2) on phase
+     15's SceneFlow-shaped files, 1 epoch of 4 steps with evaluation (rows
+     and checkpoints written once, by rank 0), then the predict CLI and
+     the train CLI's resume on one device from its checkpoint; then K1-K4
+     against their plain versions at every volume shape the ranks
      launched them at;
  17. H-sharded inference on 4 ranks that share the card over gloo
      (GANet_deep 576x960 over `space` 4) against one device, float32 and
@@ -135,8 +137,8 @@ CUDA toolkit.  Phases, each printing its lines:
      `python -m ganet_tpu_torch.train --mesh_space 2` in process for 2
      steps on phase 15's SceneFlow-shaped files, and the predict CLI on one
      device from its checkpoint; (d) `python -m ganet_tpu_torch.dryrun 4`
-     (mesh (2, 2, 1)); then K1-K6 against their plain versions at every
-     shape the ranks launched them at;
+     in process (mesh (2, 2, 1)); then K1-K6 against their plain versions
+     at every shape the ranks launched them at;
  19. disparity-sharded inference and training on 2 ranks over `disp`
      that share the card over gloo: (a) GANet_deep's eval forward at
      576x960, max_disp 192, batch 1, the gathered f32 disparity (TF32 off)
@@ -150,6 +152,7 @@ CUDA toolkit.  Phases, each printing its lines:
      and peak memory; (c) `python -m ganet_tpu_torch.train --mesh_disp 2`
      for 2 steps from phase 15's files, its checkpoint read by the
      predict CLI on one device; (d) `python -m ganet_tpu_torch.dryrun 8`
+     in process
      (mesh (2, 2, 2), GANet_small: D halos, H halos and their corners,
      the wavefront, BatchNorm over the whole mesh); (e) K1-K6 against
      their plain versions at every shape the ranks launched them at;
@@ -198,11 +201,27 @@ CUDA toolkit.  Phases, each printing its lines:
      backward, whole step; the recompute tax), launches counted; (d) one
      `torch.profiler` window (`utils.profiling.trace`) of a batch-4 step
      under sga and one under none, device time by phase 9's groups and
-     their difference; (e) `bench_scaling --meshes 1,1,1 2,1,1` (GANet_small
-     48x96): finite losses, (2,1,1) plumbing only on one card.
+     their difference; (e) `bench_scaling --meshes 1,1,1 2,1,1` (GANet_deep
+     at 240x528, max_disp 192, f32 with PyTorch's default TF32 flags, 4
+     steps after one): finite losses, (2,1,1) plumbing only on one card;
+ 23. the eval-forward profilers in process at their defaults (576x960,
+     max_disp 192, bf16, batch 1; bench_conv3d's own shapes), with
+     PyTorch's default TF32 flags: `python -m ganet_tpu_torch.bench_conv3d`
+     (30 rows, the TFLOP/s lines, its dsplit check 3 times),
+     `.profile_head` (16 rows), `.profile_breakdown` (10) and `.profile_agg`
+     (16): every row finite and positive, no FAILED row, each run's
+     launches recorded by shape (K2 in profile_head, K1 and K2 in
+     profile_breakdown, K1 in profile_agg, none in bench_conv3d) and its
+     peak memory; `profile_breakdown --only sga_full --trace` writes a
+     Chrome trace; a line sets phase 5's forward and device times (when
+     phase 5 ran) beside the sum of profile_breakdown's feature_net,
+     guidance_net, cost_volume and cost_aggregation rows; then K1 and K2
+     against their plain versions at every shape recorded.
 
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
-result line.  Any failed check raises and the script exits non-zero.  On
+result line.  A kernel held at a volume shape (`hold_at_path_shapes`) is
+held once a run: a later phase that launched it at that shape names the
+phase that held it.  Any failed check raises and the script exits non-zero.  On
 success the line before the last is a JSON object with each kernel's
 launches on its path, error, times and bound, and the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or run outside a
@@ -636,8 +655,10 @@ def phase_model_parity(torch, gen):
     torch.cuda.empty_cache()
 
 
-def phase_main_path(torch, gen, smi, entries):
-    """GANet_deep 576x960 D=192 bf16: counted run, then timed runs."""
+def phase_main_path(torch, gen, smi, entries) -> dict:
+    """GANet_deep 576x960 D=192 bf16: counted run, then timed runs; returns
+    the forward's time (min of 3) and its device time from the profiler
+    (0 where it saw none), in ms."""
     from ganet_tpu_torch import ganet_deep
     from ganet_tpu_torch.entry import build_model, predict
     from ganet_tpu_torch.utils.profiling import read_launches, reset_launches
@@ -682,7 +703,8 @@ def phase_main_path(torch, gen, smi, entries):
         f"[{disp.min().item():.3f}, {disp.max().item():.3f}]; forward latency "
         f"{min(times):.1f} ms (min of 3; all {', '.join(f'{t:.1f}' for t in times)}); "
         f"peak memory {peak:.2f} GiB; card {smi}")
-    profile_forward(torch, lambda: predict(model, left, right))
+    device_ms = profile_forward(torch, lambda: predict(model, left, right))
+    return {"forward_ms": min(times), "device_ms": device_ms}
 
 
 # Kernel-name fragments of each group in the device time.
@@ -716,8 +738,9 @@ def device_groups(torch, prof) -> tuple:
     return kernels, groups, sum(ms for ms, _, _ in kernels)
 
 
-def profile_forward(torch, forward, tag: str = "[5] profile of one forward") -> None:
-    """Device time of one call of `forward` by kernel, from torch.profiler."""
+def profile_forward(torch, forward, tag: str = "[5] profile of one forward") -> float:
+    """Device time of one call of `forward` by kernel, from torch.profiler;
+    returns the total in ms (0 where the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -729,12 +752,13 @@ def profile_forward(torch, forward, tag: str = "[5] profile of one forward") -> 
     kernels, groups, total = device_groups(torch, prof)
     if total == 0:
         log(f"{tag}: the profiler saw no device time")
-        return
+        return 0.0
     log(f"{tag} (profiler on): device time {total:.1f} ms in "
         f"{wall_ms:.1f} ms wall, device idle {100 * (1 - total / wall_ms):.1f}%; "
         + "; ".join(f"{g} {ms:.1f} ms" for g, ms in groups.items()))
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
         log(f"  {ms:8.2f} ms  x{count:<4d} {key[:110]}")
+    return total
 
 
 def sga_bwd_launch_floor_ms(x, accumulate: bool) -> float:
@@ -1671,18 +1695,32 @@ def recorded_line(seen, launches) -> str:
                      for k, n in seen.items())
 
 
+# (kernel, volume shape[, radius]) -> the tag of the phase that held it.
+HELD = {}
+
+
 def hold_at_path_shapes(torch, gen, shapes, tag) -> None:
     """K1 and K3 (each direction, storing and accumulating), K2 and K4
     against their plain versions, float32 and bfloat16, at each volume
     shape in `shapes` (from `recording_shapes`); K5 and K6 (both
     directions, seeded and not) on each column window of the sharded
-    wavefront's chunks (`chunk_layout`) of each block they swept."""
+    wavefront's chunks (`chunk_layout`) of each block they swept.  A
+    kernel and shape held earlier in the run (`HELD`) is named with the
+    phase that held it and not held again."""
     from ganet_tpu_torch.ops import lga as G
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
     from ganet_tpu_torch.parallel.sharded_sga import chunk_layout
 
-    for key in sorted({k[:2] + k[3:] for k in shapes}, key=str):  # dtype aside: both are held
+    keys = sorted({k[:2] + k[3:] for k in shapes}, key=str)  # dtype aside: both are held
+    again = [k for k in keys if k in HELD]
+    if again:
+        log(f"  {tag} held earlier in this run: " + "; ".join(
+            f"{k[0]} {k[1]}{f' r{k[2]}' if len(k) > 2 else ''} ({HELD[k]})" for k in again))
+    for key in keys:
+        if key in HELD:
+            continue
+        HELD[key] = tag
         kind, shape = key[:2]
         x32 = torch.randn(shape, device="cuda", generator=gen)
         p32 = torch.randn(shape, device="cuda", generator=gen)  # prev for K1/K3, gbar for K4
@@ -2158,192 +2196,40 @@ def phase_train_from_files(torch, gen, smi) -> None:
 
 
 # Phase 16: data-parallel training on DP_RANKS ranks that share the card over
-# gloo.  (a) parity: one f32 step (TF32 off, remat none) of the 2 ranks at
-# global batch 2 against one step of the same model, init and batch in this
-# process.  Tolerances: the loss within DP_LOSS_RTOL (the forward is
-# deterministic; cuDNN may pick other algorithms for a rank's batch of 1
-# than for the batch of 2, which moves the loss by float32 rounding); the
-# BatchNorm running statistics within DP_STATS_TOL norm-relative; the
-# global gradients (the ranks' sum) against this process's within phase 8's
-# GRAD_TOL_ALL / GRAD_TOL_PARAM, which hold cuDNN's nondeterministic
-# backward; the update of the parameters: Adam's first update moves each
-# element by lr times the sign of its gradient, so the two updates differ by
-# 2 lr where an element's gradient lies within the noise of 0 and moves the
-# other way; of the elements that this process's update moved by more than
-# lr / 2, at most DP_FLIP_SHARE may have moved the other way (or not at all)
-# on the ranks, where a wrong gradient turns about half and a skipped
-# update all; and the parameters the same bits on both ranks.  (b) the train CLI with --mesh_data 2 from phase 15's files.
-# (c) each rank's launches a step, step time, gradient all-reduce time and
-# peak memory (ranks sharing one card: not a multi-GPU time).
+# gloo, run as `sharded_step_checks` on the mesh (DP_RANKS, 1, 1) with the
+# gates it has always held.  The tolerances of the parity of a sharded
+# step with one device's (phases 16, 18-20): the loss within DP_LOSS_RTOL
+# (the forward is deterministic; cuDNN may pick other algorithms for a
+# rank's part of the batch than for the whole, which moves the loss by
+# float32 rounding); the BatchNorm running statistics within DP_STATS_TOL
+# norm-relative; the global gradients (the ranks' sum) against this
+# process's within phase 8's GRAD_TOL_ALL / GRAD_TOL_PARAM, which hold
+# cuDNN's nondeterministic backward; the update of the parameters: Adam's
+# first update moves each element by lr times the sign of its gradient, so
+# the two updates differ by 2 lr where an element's gradient lies within the
+# noise of 0 and moves the other way; of the elements that this process's
+# update moved by more than lr / 2, at most DP_FLIP_SHARE may have moved the
+# other way (or not at all) on the ranks, where a wrong gradient turns about
+# half and a skipped update all.
 DP_RANKS = 2
-DP_MAX_DISP = 192
 DP_LOSS_RTOL = 1e-5
 DP_STATS_TOL = 1e-4
 DP_FLIP_SHARE = 0.02
-DP_TIMED_STEPS = 4
 
 
 def phase_data_parallel(torch, gen, smi, device: str = "cuda") -> None:
-    """Data-parallel training: parity of 2 ranks with one device, the train
-    CLI with --mesh_data 2 from files, per-rank figures, and K1-K4 held at
-    every shape the ranks launched.  `device` "cpu" rehearses the phase's
-    control flow on the plain versions (no times, no kernels to hold)."""
-    import math
-    import os
-    import tempfile
-    from collections import Counter
-
-    import numpy as np
-
-    from ganet_tpu_torch import train as train_cli
-    from ganet_tpu_torch.parallel.launch import launch
-    from ganet_tpu_torch.parallel import dp_cases as K
-    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
-
-    (CH, CW), D = TRAIN_CROP, DP_MAX_DISP
-    cuda = device == "cuda"
-    deep = dict(kind="step", model="GANet_deep", size=(CH, CW), max_disp=D, batch=DP_RANKS, steps=1)
-    cases = [dict(deep, name="parity", remat="none", dtype="float32"),
-             dict(deep, name="timed", remat="sga", dtype="bfloat16", reps=DP_TIMED_STEPS)]
-    shapes = Counter()
-    if cuda:
-        torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as out_dir:
-        t0 = time.perf_counter()
-        launch(K.run_cases, DP_RANKS, (cases, out_dir, device), backend="gloo", device=device)
-        log(f"[16] {DP_RANKS} ranks on one card (gloo): GANet_deep {CH}x{CW} D={D} global batch "
-            f"{DP_RANKS}, the parity step and the timed steps in {time.perf_counter() - t0:.1f} s")
-        results = {c["name"]: K.load(c, out_dir, DP_RANKS) for c in cases}
-
-    # (c) launches a step on every rank, against phase 15's counts.
-    for case in cases:
-        want = STEP_LAUNCHES[case["remat"]]
-        for rank, res in enumerate(results[case["name"]]):
-            for launched in res["launches"]:
-                if launched != {k: want.get(k, 0) for k in launched}:
-                    raise AssertionError(f"[16] {case['name']} rank {rank}: launched {launched} a step, "
-                                         f"expected {want}")
-            shapes.update(res["shapes"])
-        log(f"  [16] {case['name']} (remat {case['remat']}, {case['dtype']}): launches a step on each "
-            f"of the {DP_RANKS} ranks {want} ok")
-
-    # (a) parity against one step in this process on the global batch.
-    ranks = results["parity"]
-    digests = {r["digest"] for r in ranks}
-    ref = K.reference(cases[0], device)
-    got = ranks[0]
-    loss_rel = abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
-    stats = [k for k in ref["state"] if "running" in k]
-    stats_rel = max(norm_rel(torch, got["state"][k], ref["state"][k]) for k in stats)
-    flat = lambda g: torch.cat([g[n].flatten().double() for n in sorted(g)])  # noqa: E731
-    grad_all = norm_rel(torch, flat(got["grads"]), flat(ref["grads"]))
-    grad_worst = max((norm_rel(torch, got["grads"][n], ref["grads"][n]), n) for n in ref["grads"])
-    lr = K.train_config(cases[0]).optim.lr
-    params = sorted(ref["grads"])
-    step_diff = max((got["state"][n] - ref["state"][n]).abs().max().item() for n in params)
-    moved = flipped = 0
-    for n in params:
-        mine, theirs = ref["state"][n] - ref["init"][n], got["state"][n] - ref["init"][n]
-        sel = mine.abs() > lr / 2
-        moved += int(sel.sum())
-        flipped += int((sel & (mine * theirs <= 0)).sum())
-    total = sum(ref["state"][n].numel() for n in params)
-    flip_share = flipped / max(moved, 1)
-    ok = (len(digests) == 1 and loss_rel <= DP_LOSS_RTOL and stats_rel <= DP_STATS_TOL
-          and grad_all <= GRAD_TOL_ALL and grad_worst[0] <= GRAD_TOL_PARAM
-          and moved > 0 and flip_share <= DP_FLIP_SHARE and math.isfinite(got["losses"][0]))
-    log(f"[16] (a) parity, GANet_deep {CH}x{CW} D={D} f32 (TF32 off) remat none, {DP_RANKS} ranks x "
-        f"batch 1 vs one process x batch {DP_RANKS}: loss {got['losses'][0]:.6f} vs "
-        f"{ref['losses'][0]:.6f} (rel {loss_rel:.2e}, tol {DP_LOSS_RTOL}); running statistics worst "
-        f"{stats_rel:.2e} (tol {DP_STATS_TOL}); global gradients all {grad_all:.2e} (tol "
-        f"{GRAD_TOL_ALL}), worst {grad_worst[0]:.2e} {grad_worst[1]} (tol {GRAD_TOL_PARAM}); "
-        f"update (lr {lr:g}): {moved} of {total} elements moved by more than lr/2 here, of them "
-        f"{flipped} ({flip_share:.3%}, tol {DP_FLIP_SHARE:.0%}) the other way or not at all on the "
-        f"ranks; parameters after the update max |diff| {step_diff:.2e}; "
-        f"state digests of the ranks {'equal' if len(digests) == 1 else 'DIFFER'} "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("[16] the data-parallel step disagrees with the one-device step")
-    del ref, ranks, got
-
-    # (c) per-rank figures of the timed case (bf16, remat sga, batch 1 a rank).
-    for rank, res in enumerate(results["timed"]):
-        if not all(map(math.isfinite, res["losses"])):
-            raise AssertionError(f"[16] timed rank {rank}: losses {res['losses']}")
-        if not cuda:
-            continue
-        log(f"[16] (c) rank {rank}, GANet_deep {CH}x{CW} D={D} bf16 remat sga, batch 1 of global "
-            f"{DP_RANKS}: step {min(res['step_ms']):.1f} ms (min of {len(res['step_ms'])}; all "
-            f"{', '.join(f'{t:.1f}' for t in res['step_ms'])}); gradient all-reduce of "
-            f"{res['grad_mib']:.1f} MiB f32 through the host {min(res['allreduce_ms']):.1f} ms (all "
-            f"{', '.join(f'{t:.1f}' for t in res['allreduce_ms'])}); peak memory "
-            f"{res['peak_gib']:.2f} GiB; {DP_RANKS} ranks share one card: not a multi-GPU time; card {smi}")
-    if len({r["digest"] for r in results["timed"]}) != 1:
-        raise AssertionError("[16] the timed ranks' parameters differ")
-    del results
-
-    # (b) the train CLI, --mesh_data 2, from phase 15's SceneFlow-shaped files.
-    rng = np.random.default_rng(16)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "sceneflow")
-        train_list, _ = write_sceneflow(root, "TRAIN", TRAIN_FRAMES, SCENEFLOW_FRAME, rng)
-        val_list, _ = write_sceneflow(root, "TEST", VAL_FRAMES, (CH, CW), rng)
-        save = os.path.join(tmp, "ckpt")
-        common = ["--model", "GANet_deep", "--max_disp", str(D), "--bf16", "1", "--batchSize", "2",
-                  "--crop_height", str(CH), "--crop_width", str(CW), "--data_path", root,
-                  "--training_list", train_list, "--val_list", val_list, "--log_every", "1",
-                  "--save_path", save] + ([] if cuda else ["--device", "cpu"])
-        # This process is rank 0: its launches are rank 0's, 4 steps and one
-        # evaluation forward (the 2 validation frames, one a rank).
-        seen = Counter()
-        want = {k: FILE_STEPS * v + FORWARD_LAUNCHES.get(k, 0) for k, v in STEP_LAUNCHES["sga"].items()}
-        with recording_shapes(seen):
-            reset_launches()
-            t0 = time.perf_counter()
-            trainer = train_cli.main(common + ["--mesh_data", str(DP_RANKS), "--nEpochs", "1",
-                                               "--steps", str(FILE_STEPS), "--eval", "1"])
-            if cuda:
-                torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = read_launches()
-        shapes.update(seen)
-        full = {k: want.get(k, 0) for k in launches}
-        rows, val = train_rows(save, "epoch0"), train_rows(save, "val")
-        files = sorted(os.listdir(save))
-        ok = (launches == full and trainer.cfg.model.remat == "sga" and trainer.data_size == DP_RANKS
-              and [r["step"] for r in rows] == list(range(1, FILE_STEPS + 1))
-              and all(math.isfinite(r["loss"]) for r in rows) and len(val) == 1
-              and files == ["0", "best", "best_epe.json", "train.jsonl"]
-              and sorted(os.listdir(os.path.join(save, "0"))) == [
-                  "meta.json", "model.pt", "optimizer.pt", "scheduler.pt"]
-              and os.listdir(os.path.join(save, "best")) == [str(FILE_STEPS)])
-        log(f"[16] (b) train CLI --mesh_data {DP_RANKS} (bf16, remat sga, batch 2, 1 epoch of "
-            f"{FILE_STEPS} steps, then evaluate): {secs:.2f} s; rank 0 launched {launches} (expected "
-            f"{full}) at {recorded_line(seen, launches)}")
-        log("  [16] (b) rows: " + "; ".join(
-            f"step {r['step']} loss {r['loss']:.4f} epe {r['epe']:.3f}" for r in rows)
-            + f"; val epe {val[-1]['epe']:.3f} over {val[-1]['valid_px']:.0f} px (both frames); "
-            f"{len(rows) + len(val)} rows in train.jsonl (one run's); save_path {files}, 0/ and best/ "
-            f"once {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("[16] the data-parallel CLI run did not train, log and save once")
-        del trainer
-
-        # The 2-rank checkpoint resumes on one device.
-        trainer = train_cli.main(common + ["--nEpochs", "2", "--steps", "1"])
-        rows = train_rows(save, "epoch1")
-        ok = (trainer.start_epoch == 1 and trainer.mesh is None and [r["step"] for r in rows] == [5]
-              and math.isfinite(rows[0]["loss"]))
-        log(f"[16] (b) resumed on one device: start_epoch {trainer.start_epoch}, step "
-            f"{rows[0]['step']} loss {rows[0]['loss']:.4f} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("[16] the 2-rank checkpoint did not resume on one device")
-        del trainer
-    if cuda:
-        torch.cuda.empty_cache()
-        log(f"[16] K1-K4 against their plain versions at the {len(shapes)} volume shapes the "
-            "ranks launched")
-        hold_at_path_shapes(torch, gen, shapes, "[16]")
+    """Data-parallel training on DP_RANKS ranks over `data`
+    (`sharded_step_checks` on (DP_RANKS, 1, 1)): (a) one f32 step under
+    remat none against one device on the global batch, the ranks' whole
+    states (running statistics included) the same bits; (b) each rank's
+    launches a step under none and sga, its step time, all-reduce time and
+    peak memory; (c) the train CLI with --mesh_data from files with its
+    evaluation, best checkpoint and resume on one device, and the predict
+    CLI on one device from its checkpoint; then K1-K4 held at every shape
+    the ranks launched.  `device` "cpu" rehearses the phase's control flow
+    on the plain versions (no times, no kernels to hold)."""
+    sharded_step_checks(torch, gen, smi, "[16]", (DP_RANKS, 1, 1), 16, STEP_LAUNCHES, None, device,
+                        parity_remat="none", cli_eval=True)
 
 
 # Phase 17: the H-sharded eval forward of GANet_deep on SP_RANKS ranks that
@@ -2599,7 +2485,8 @@ def phase_spatial(torch, gen, smi, entries, device: str = "cuda") -> None:
 # that share the card, the train CLI with --mesh_space and the dryrun.
 ST_RANKS = 2
 ST_MAX_DISP = 192
-ST_TIMED = 1  # timed steps after the 2 counted ones (ranks time-slicing the card: plumbing times)
+ST_COUNTED = 1  # bf16 steps a rank whose launches are counted
+ST_TIMED = 1  # timed steps after the counted ones (ranks time-slicing the card: plumbing times)
 ST_CLI_STEPS = 2
 
 
@@ -2631,16 +2518,21 @@ def ranks_agree(torch, ranks, params) -> tuple:
 
 
 def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want: dict,
-                        dryrun_n, device: str, shapes=None, channel_tp: bool = False) -> None:
+                        dryrun_n, device: str, shapes=None, channel_tp: bool = False,
+                        parity_remat: str = "sga", cli_eval: bool = False) -> None:
     """Sharded training of GANet_deep at TRAIN_CROP, max_disp ST_MAX_DISP,
-    global batch 2, remat sga, on the ranks of `mesh` (data, space, disp),
-    with `channel_tp` the `disp` ranks splitting channels, which share the
-    card over gloo: (a) parity of one f32 step with one device on the same
-    batch, (b) each rank's launches a step (`want`), step time and peak
-    memory, (c) the train CLI on the mesh from files and the predict CLI on
-    one device from its checkpoint, (d) the dryrun on `dryrun_n` ranks
-    (none for None); then K1-K6 held at every shape the ranks launched,
-    and at the `shapes` (a Counter) given."""
+    global batch 2, on the ranks of `mesh` (data, space, disp), with
+    `channel_tp` the `disp` ranks splitting channels, which share the card
+    over gloo: (a) parity of one f32 step under remat `parity_remat` with
+    one device on the same batch (on a `data`-only mesh the ranks' whole
+    states the same bits), (b) each rank's launches a step (`want`, by
+    remat policy), its bf16 step time under remat sga and peak memory, (c)
+    the train CLI on the mesh from files (with `cli_eval`: FILE_STEPS steps
+    and its evaluation of one validation frame a `data` rank, best/, and
+    the checkpoint resumed on one device) and the predict CLI on one device
+    from its checkpoint, (d) the dryrun on `dryrun_n` ranks (none for
+    None); then K1-K6 held at every shape the ranks launched, and at the
+    `shapes` (a Counter) given."""
     import math
     import os
     import tempfile
@@ -2663,10 +2555,12 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
     label = ", ".join(f"{a} {n}" for a, n in axes) + (" (channel TP)" if channel_tp else "")
     cli_flags = [w for a, n in axes for w in (f"--mesh_{a}", str(n))]
     cli_flags += ["--channel_tp", "1"] if channel_tp else []
+    # Every rank runs the whole model on its rows: no part of it is the rank's own.
+    whole = mesh[1] == mesh[2] == 1
     deep = dict(kind="step", model="GANet_deep", size=(CH, CW), max_disp=D, batch=2, remat="sga",
                 mesh=mesh, channel_tp=channel_tp)
-    cases = [dict(deep, name="parity", dtype="float32", steps=1, seed=seed),
-             dict(deep, name="timed", dtype="bfloat16", steps=2, reps=ST_TIMED, seed=seed)]
+    cases = [dict(deep, name="parity", dtype="float32", steps=1, seed=seed, remat=parity_remat),
+             dict(deep, name="timed", dtype="bfloat16", steps=ST_COUNTED, reps=ST_TIMED, seed=seed)]
     shapes = Counter() if shapes is None else shapes
     if cuda:
         torch.cuda.empty_cache()
@@ -2674,21 +2568,22 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
         t0 = time.perf_counter()
         launch(K.run_cases, n_ranks, (cases, out_dir, device), backend="gloo", device=device)
         log(f"{tag} {n_ranks} ranks over {label} on one card (gloo): GANet_deep {CH}x{CW} D={D} "
-            f"global batch 2, remat sga, the f32 parity step and the bf16 steps in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"global batch 2, the f32 parity step (remat {parity_remat}) and the bf16 steps (remat "
+            f"sga) in {time.perf_counter() - t0:.1f} s")
         results = {c["name"]: K.load(c, out_dir, n_ranks) for c in cases}
 
     # (b) launches a step on every rank.
     for case in cases:
+        expected = want[case["remat"]]
         for rank, res in enumerate(results[case["name"]]):
             for launched in res["launches"]:
-                full = {k: want.get(k, 0) for k in launched}
+                full = {k: expected.get(k, 0) for k in launched}
                 if cuda and launched != full:  # the plain versions count nothing
                     raise AssertionError(f"{tag} {case['name']} rank {rank}: launched {launched} a "
                                          f"step, expected {full}")
             shapes.update(res["shapes"])
-        log(f"  {tag} (b) {case['name']} ({case['dtype']}): launches a step on each of the {n_ranks} "
-            f"ranks {want} (K7 none) ok")
+        log(f"  {tag} (b) {case['name']} ({case['dtype']}, remat {case['remat']}): launches a step on "
+            f"each of the {n_ranks} ranks {expected} (K7 none) ok")
 
     # (a) parity against one step in this process on the same batch, run twice.
     ranks = results["parity"]
@@ -2726,16 +2621,20 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
     # summed or gathered over the mesh) are the same bits on every rank.
     agg = [k for k in got["state"] if k.startswith("cost_agg.")]
     same = same and all(torch.equal(r["state"][k], got["state"][k]) for r in ranks[1:] for k in agg)
+    # On a `data`-only mesh every BatchNorm takes its moments over the mesh:
+    # the whole states are the same bits.
+    same = same and (not whole or len({r["digest"] for r in ranks}) == 1)
+    own = " (each rank's own 2D part)"
     ok = (same and buffers <= DP_STATS_TOL and g[0] <= DP_LOSS_RTOL and g[1] <= DP_STATS_TOL and g[2] <= GRAD_TOL_ALL
           and g[3][0] <= GRAD_TOL_PARAM and g[5] > 0 and g[4] <= DP_FLIP_SHARE
           and math.isfinite(got["losses"][0]))
-    log(f"{tag} (a) parity, GANet_deep {CH}x{CW} D={D} f32 (TF32 off) remat sga, {n_ranks} ranks "
+    log(f"{tag} (a) parity, GANet_deep {CH}x{CW} D={D} f32 (TF32 off) remat {parity_remat}, {n_ranks} ranks "
         f"over {label} vs one process, batch 2: loss {got['losses'][0]:.6f} vs "
         f"{refs[0]['losses'][0]:.6f}; {line(g)}; gates: loss {DP_LOSS_RTOL}, statistics "
         f"{DP_STATS_TOL}, gradients {GRAD_TOL_ALL} / {GRAD_TOL_PARAM}, update {DP_FLIP_SHARE:.0%}; "
-        f"the ranks' parameters and aggregation buffers {'the same bits' if same else 'DIFFER'}, "
-        f"their running statistics {buffers:.2e} apart (each rank's own 2D part) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"the ranks' {'whole states' if whole else 'parameters and aggregation buffers'} "
+        f"{'the same bits' if same else 'DIFFER'}, their running statistics {buffers:.2e} apart"
+        f"{'' if whole else own} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{tag} the sharded step disagrees with the one-device step")
     del refs, ranks, got
@@ -2748,55 +2647,67 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
             continue
         log(f"{tag} (b) rank {rank}, GANet_deep {CH}x{CW} D={D} bf16 remat sga, global batch 2 over "
             f"{label}: step {min(res['step_ms']):.1f} ms (host clock after a barrier to a "
-            f"synchronize, min of the last {len(res['step_ms'])} of {2 + len(res['step_ms'])}; all "
+            f"synchronize, min of the last {len(res['step_ms'])} of {ST_COUNTED + len(res['step_ms'])}; all "
             f"{', '.join(f'{t:.1f}' for t in res['step_ms'])}); gradient all-reduce "
             f"{min(res['allreduce_ms']):.1f} ms; peak memory {res['peak_gib']:.2f} GiB; "
             f"{n_ranks} ranks time-slicing one card over gloo: not a multi-GPU time; card {smi}")
-    if not ranks_agree(torch, results["timed"], params)[0]:
+    timed = results["timed"]
+    if not ranks_agree(torch, timed, params)[0] or (whole and len({r["digest"] for r in timed}) != 1):
         raise AssertionError(f"{tag} the timed ranks' parameters differ")
     del results
 
-    # (c) the train CLI on the mesh from phase 15's SceneFlow-shaped files,
-    # and the predict CLI on one device from its checkpoint.
+    # (c) the train CLI on the mesh from phase 15's SceneFlow-shaped files
+    # (with `cli_eval`, evaluating one validation frame a `data` rank), the
+    # predict CLI on one device from its checkpoint, and with `cli_eval` its
+    # resume on one device.
+    steps, n_val = (FILE_STEPS, mesh[0]) if cli_eval else (ST_CLI_STEPS, 1)
     rng = np.random.default_rng(seed)
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "sceneflow")
         train_list, _ = write_sceneflow(root, "TRAIN", TRAIN_FRAMES, SCENEFLOW_FRAME, rng)
-        val_list, val_lines = write_sceneflow(root, "TEST", 1, (CH, CW), rng)
+        val_list, val_lines = write_sceneflow(root, "TEST", n_val, (CH, CW), rng)
         save = os.path.join(tmp, "ckpt")
         dev = [] if cuda else ["--device", "cpu"]
+        common = ["--model", "GANet_deep", "--max_disp", str(D), "--bf16", "1", "--batchSize", "2",
+                  "--crop_height", str(CH), "--crop_width", str(CW), "--data_path", root,
+                  "--training_list", train_list, "--val_list", val_list, "--log_every", "1",
+                  "--save_path", save] + dev
         seen = Counter()
         with recording_shapes(seen):
             reset_launches()
             t0 = time.perf_counter()
-            trainer = train_cli.main(
-                ["--model", "GANet_deep", "--max_disp", str(D), "--bf16", "1", "--batchSize", "2",
-                 "--crop_height", str(CH), "--crop_width", str(CW), "--data_path", root,
-                 "--training_list", train_list, "--val_list", val_list, "--log_every", "1",
-                 "--save_path", save, "--nEpochs", "1", "--steps", str(ST_CLI_STEPS)]
-                + cli_flags + dev)
+            trainer = train_cli.main(common + ["--nEpochs", "1", "--steps", str(steps)] + cli_flags
+                                     + (["--eval", "1"] if cli_eval else []))
             if cuda:
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = read_launches()
         shapes.update(seen)
-        full = {k: ST_CLI_STEPS * want.get(k, 0) for k in launches}
-        rows = train_rows(save, "epoch0")
+        # Rank 0's steps, and with `cli_eval` its forward of one validation frame.
+        full = {k: steps * want["sga"].get(k, 0) + cli_eval * FORWARD_LAUNCHES.get(k, 0)
+                for k in launches}
+        rows, val = train_rows(save, "epoch0"), train_rows(save, "val")
         final = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
         weights = load_inference_state(save)
+        files = ["0", "best", "best_epe.json", "train.jsonl"] if cli_eval else ["0", "train.jsonl"]
         ok = ((launches == full or not cuda) and trainer.cfg.model.remat == "sga"
-              and trainer.cfg.model.channel_tp == channel_tp
+              and trainer.cfg.model.channel_tp == channel_tp and trainer.data_size == mesh[0]
               and (trainer.mesh.cfg.data, trainer.mesh.cfg.space, trainer.mesh.cfg.disp) == mesh
-              and [r["step"] for r in rows] == list(range(1, ST_CLI_STEPS + 1))
+              and [r["step"] for r in rows] == list(range(1, steps + 1))
               and all(math.isfinite(r["loss"]) for r in rows)
-              and sorted(os.listdir(save)) == ["0", "train.jsonl"]
+              and len(val) == cli_eval and sorted(os.listdir(save)) == files
+              and sorted(os.listdir(os.path.join(save, "0"))) == [
+                  "meta.json", "model.pt", "optimizer.pt", "scheduler.pt"]
+              and (not cli_eval or os.listdir(os.path.join(save, "best")) == [str(steps)])
               and sorted(weights) == sorted(final)
               and all(torch.equal(weights[k].cpu(), v) for k, v in final.items()))
-        log(f"{tag} (c) train CLI {' '.join(cli_flags)} (bf16, remat sga, batch 2, {ST_CLI_STEPS} "
-            f"steps from {TRAIN_FRAMES} SceneFlow-shaped frames): {secs:.2f} s with the ranks' start; "
-            f"rank 0 launched {launches} (expected {full}); rows "
+        log(f"{tag} (c) train CLI {' '.join(cli_flags)} (bf16, remat sga, batch 2, {steps} steps from "
+            f"{TRAIN_FRAMES} SceneFlow-shaped frames{', then evaluate' if cli_eval else ''}): "
+            f"{secs:.2f} s with the ranks' start; rank 0 launched {launches} (expected {full}); rows "
             + "; ".join(f"step {r['step']} loss {r['loss']:.4f}" for r in rows)
-            + f"; the checkpoint is rank 0's state bit for bit {'ok' if ok else 'FAIL'}")
+            + "".join(f"; val epe {v['epe']:.3f} over {v['valid_px']:.0f} px ({n_val} frames)" for v in val)
+            + f"; save_path {sorted(os.listdir(save))} written once; the checkpoint is rank 0's state "
+            f"bit for bit {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{tag} the {' '.join(cli_flags)} CLI run did not train, log and save once")
         del trainer, final, weights
@@ -2812,9 +2723,22 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
             f"{[os.path.basename(p) for p in written]} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{tag} the predict CLI did not read the {' '.join(cli_flags)} checkpoint")
+        if cli_eval:
+            trainer = train_cli.main(common + ["--nEpochs", "2", "--steps", "1"])
+            rows = train_rows(save, "epoch1")
+            ok = (trainer.start_epoch == 1 and trainer.mesh is None
+                  and [r["step"] for r in rows] == [steps + 1] and math.isfinite(rows[0]["loss"]))
+            log(f"{tag} (c) resumed on one device: start_epoch {trainer.start_epoch}, step "
+                f"{rows[0]['step']} loss {rows[0]['loss']:.4f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag} the {' '.join(cli_flags)} checkpoint did not resume on one device")
+            del trainer
 
-    # (d) the dryrun, python -m ganet_tpu_torch.dryrun n.
-    from ganet_tpu_torch.dryrun import dryrun_mesh
+    # (d) the dryrun, python -m ganet_tpu_torch.dryrun n, in process (this
+    # process rank 0): a subprocess would pay for its own start.
+    import io
+
+    from ganet_tpu_torch import dryrun
 
     if dryrun_n is None:
         if cuda:
@@ -2822,18 +2746,18 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
             log(f"{tag} K1-K6 against their plain versions at the {len(shapes)} shapes the ranks launched")
             hold_at_path_shapes(torch, gen, shapes, tag)
         return
-    dm = dryrun_mesh(dryrun_n)
+    dm = dryrun.dryrun_mesh(dryrun_n)
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "ganet_tpu_torch.dryrun", str(dryrun_n)] + dev,
-                         capture_output=True, text=True, timeout=600,
-                         cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = out.stdout.strip().splitlines()
-    ok = out.returncode == 0 and bool(lines) and lines[-1].startswith(
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun.main([str(dryrun_n)] + dev)
+    lines = out.getvalue().strip().splitlines()
+    ok = bool(lines) and lines[-1].startswith(
         f"dryrun_multichip ok: mesh={{'data': {dm.data}, 'space': {dm.space}, 'disp': {dm.disp}}} ")
-    log(f"{tag} (d) python -m ganet_tpu_torch.dryrun {dryrun_n}: {lines[-1] if lines else '(no output)'} "
-        f"({time.perf_counter() - t0:.1f} s with its start) {'ok' if ok else 'FAIL'}")
+    log(f"{tag} (d) python -m ganet_tpu_torch.dryrun {dryrun_n} in process: "
+        f"{lines[-1] if lines else '(no output)'} ({time.perf_counter() - t0:.1f} s with the ranks' "
+        f"start) {'ok' if ok else 'FAIL'}")
     if not ok:
-        print(out.stderr[-4000:], file=sys.stderr)
         raise AssertionError(f"{tag} the dryrun failed")
 
     if cuda:
@@ -2856,7 +2780,7 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
     for e in entries:
         if e["name"] == "sga_bwd_seeded":  # K6's model path: a step's launches over the ranks
             e["launches"] = ST_RANKS * want["sga_bwd_seeded"]
-    sharded_step_checks(torch, gen, smi, "[18]", (1, ST_RANKS, 1), 18, want, 4, device)
+    sharded_step_checks(torch, gen, smi, "[18]", (1, ST_RANKS, 1), 18, {"sga": want}, 4, device)
 
 
 # Phase 19: disparity-sharded inference and training of GANet_deep on
@@ -2880,7 +2804,7 @@ def phase_disp(torch, gen, smi, device: str = "cuda") -> None:
     the plain versions (no times, no kernels to hold)."""
     mesh = (1, 1, DS_RANKS)
     shapes = sharded_forward_checks(torch, smi, "[19]", mesh, 19, FORWARD_LAUNCHES, device)
-    sharded_step_checks(torch, gen, smi, "[19]", mesh, 19, STEP_LAUNCHES["sga"], 8, device, shapes)
+    sharded_step_checks(torch, gen, smi, "[19]", mesh, 19, STEP_LAUNCHES, 8, device, shapes)
 
 
 # Phase 20: channel tensor parallelism of GANet_deep on CT_RANKS ranks over
@@ -2905,7 +2829,7 @@ def phase_channel_tp(torch, gen, smi, device: str = "cuda") -> None:
     mesh = (1, 1, CT_RANKS)
     shapes = sharded_forward_checks(torch, smi, "[20]", mesh, 20, FORWARD_LAUNCHES, device,
                                     channel_tp=True)
-    sharded_step_checks(torch, gen, smi, "[20]", mesh, 20, STEP_LAUNCHES["sga"], None, device, shapes,
+    sharded_step_checks(torch, gen, smi, "[20]", mesh, 20, STEP_LAUNCHES, None, device, shapes,
                         channel_tp=True)
 
 
@@ -3380,6 +3304,109 @@ def phase_train_bench(torch, smi, device: str = "cuda") -> None:
             raise AssertionError(f"[22] (e) mesh {r['mesh']} on {cards} card(s): {r}")
     log(f"[22] card {smi}")
 
+# Phase 23: the eval-forward profilers at their defaults.  Each module with
+# its rows and the kernels it launches (the others it must not launch).
+PE_MODULES = (("bench_conv3d", 30, ()), ("profile_head", 16, ("lga_fwd",)),
+              ("profile_breakdown", 10, ("sga_fwd", "lga_fwd")), ("profile_agg", 16, ("sga_fwd",)))
+PE_ARGV = {}  # extra flags a module, for a rehearsal at small shapes on the CPU
+# profile_breakdown's rows that phase 5's forward runs.
+PE_FORWARD = ("feature_net(both views)", "guidance_net", "cost_volume", "cost_aggregation(module, eval)")
+
+
+def phase_eval_profilers(torch, gen, smi, main_path=None, device: str = "cuda") -> None:
+    """The eval-forward profilers (`python -m ganet_tpu_torch.bench_conv3d`,
+    `.profile_head`, `.profile_breakdown`, `.profile_agg`) in process at
+    their defaults, with PyTorch's default TF32 flags, as `python -m`
+    runs them: every row finite and positive and no FAILED row, each run's
+    launches recorded by shape, bench_conv3d's dsplit check; the Chrome
+    trace of `profile_breakdown --only sga_full --trace`; phase 5's
+    figures (`main_path`, when it ran) beside the sum of the rows that its
+    forward runs; then K1 and K2 held at every shape recorded.  `device`
+    "cpu" rehearses the phase's control flow (no launches or memory to
+    check) at the shapes `PE_ARGV` and the modules' constants set."""
+    import importlib
+    import io
+    import math
+    import os
+    import tempfile
+    from collections import Counter
+
+    from ganet_tpu_torch.utils.profiling import (
+        RECORDED,
+        read_launches,
+        recording_shapes,
+        reset_launches,
+        trace_name,
+    )
+
+    cuda = device == "cuda"
+    dev = [] if cuda else ["--device", "cpu"]
+    shapes, rows = Counter(), {}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        for name, n_rows, kernels in PE_MODULES:
+            module = importlib.import_module(f"ganet_tpu_torch.{name}")
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            seen, out, err = Counter(), io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with recording_shapes(seen), contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                reset_launches()
+                res = module.main(PE_ARGV.get(name, []) + dev)
+                launches = read_launches()
+            secs = time.perf_counter() - t0
+            for line in (out.getvalue() + err.getvalue()).splitlines():
+                log(f"  [23] {name}: {line}")
+            shapes.update(seen)
+            bad = [k for k, ms in res.items() if not (math.isfinite(ms) and ms > 0)]
+            checks = err.getvalue().count("dsplit check") if name == "bench_conv3d" else 3
+            launched = all((launches[k] > 0) == (k in kernels) for k in RECORDED) or not cuda
+            peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+            ok = (len(res) == n_rows and not bad and "FAILED" not in out.getvalue() and checks == 3
+                  and launched)
+            log(f"[23] python -m ganet_tpu_torch.{name} ({secs:.1f} s): {len(res)} rows (expected "
+                f"{n_rows}), all finite and positive, none FAILED; launched {launches} (K "
+                f"{', '.join(kernels) or 'none'} expected) at {recorded_line(seen, launches) or 'no shape'}"
+                f"; peak memory {peak:.2f} GiB; card {smi} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[23] {name}: rows {len(res)}, not finite {bad}, launches {launches}, "
+                                     f"dsplit checks {checks}")
+            rows[name] = res
+
+        from ganet_tpu_torch import profile_breakdown
+
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            profile_breakdown.main(PE_ARGV.get("profile_breakdown", []) + dev
+                                   + ["--only", "sga_full", "--trace", tmp])
+            where = os.path.join(tmp, trace_name("sga_full(x1)"))
+            traces = os.listdir(where)
+            with open(os.path.join(where, traces[0])) as f:
+                events = len(json.load(f)["traceEvents"])
+            size = os.path.getsize(os.path.join(where, traces[0])) / 2**20
+        ok = len(traces) == 1 and events > 0
+        log(f"[23] profile_breakdown --only sga_full --trace: {traces} in {os.path.basename(where)}/, "
+            f"{events} events, {size:.1f} MiB {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[23] profile_breakdown --trace wrote no Chrome trace")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    parts = {k: rows["profile_breakdown"][k] for k in PE_FORWARD}
+    summed = " + ".join(f"{k} {ms:.2f}" for k, ms in parts.items()) + f" = {sum(parts.values()):.2f} ms"
+    if main_path:
+        log(f"[23] phase 5's forward {main_path['forward_ms']:.1f} ms (min of 3) and its device time "
+            f"{main_path['device_ms']:.1f} ms (profiler on) against profile_breakdown's {summed} "
+            f"(each a chained stage); card {smi}")
+    else:
+        log(f"[23] profile_breakdown's {summed}; phase 5 did not run in this call")
+    if cuda:
+        torch.cuda.empty_cache()
+        log(f"[23] K1 and K2 against their plain versions at the {len(shapes)} shapes the four modules "
+            "launched them at")
+        hold_at_path_shapes(torch, gen, shapes, "[23]")
+
 
 def main() -> int:
     try:
@@ -3419,8 +3446,9 @@ def main() -> int:
         entries.append(phase_lga(torch, gen, smi))
     if want(4):
         phase_model_parity(torch, gen)
+    main_path = None
     if want(5):
-        phase_main_path(torch, gen, smi, entries)
+        main_path = phase_main_path(torch, gen, smi, entries)
     if want(6):
         log("[6] K3 SGA gradient-sweep kernel vs plain version")
         entries.append(phase_sga_bwd(torch, gen))
@@ -3455,7 +3483,9 @@ def main() -> int:
     if want(16):
         log(f"[16] data-parallel training on {DP_RANKS} ranks sharing the card "
             f"({time.perf_counter() - t0:.1f} s)")
+        t16 = time.perf_counter()
         phase_data_parallel(torch, gen, smi)
+        log(f"[16] {time.perf_counter() - t16:.1f} s")
     if want(17):
         log(f"[17] H-sharded inference on {SP_RANKS} ranks sharing the card, and the predict CLI "
             f"on meshes ({time.perf_counter() - t0:.1f} s)")
@@ -3481,6 +3511,12 @@ def main() -> int:
         t22 = time.perf_counter()
         phase_train_bench(torch, smi)
         log(f"[22] {time.perf_counter() - t22:.1f} s")
+    if want(23):
+        log(f"[23] the eval-forward profilers: bench_conv3d, profile_head, profile_breakdown, "
+            f"profile_agg ({time.perf_counter() - t0:.1f} s)")
+        t23 = time.perf_counter()
+        phase_eval_profilers(torch, gen, smi, main_path)
+        log(f"[23] {time.perf_counter() - t23:.1f} s")
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0
