@@ -14,9 +14,9 @@ CUDA toolkit.  Phases, each printing its lines:
      floor, the staging path it took (vectorised at every shape of the
      model's paths, the training path's included), its registers, shared
      memory and local memory (no spills), and its H-sweep step loop in
-     SASS; and at the top rungs of its D (129, 192 and 256 = SGA_MAX_D) on
-     a small volume, per direction, storing and accumulating, with no
-     spills;
+     SASS; and at the rung of 8 lanes a column along H (D = 129, 192 and
+     256) on a small volume, per direction, storing and accumulating, with
+     no spills;
   3. the LGA kernel (K2) against its plain version at the eval path's head
      (repeats 1 and 2) and at the training path's, float32 and bfloat16:
      two launches bit-identical, its time beside its bound, its
@@ -34,7 +34,7 @@ CUDA toolkit.  Phases, each printing its lines:
      float32 and bfloat16; per launch its time beside its own traffic
      floor and its staging path, registers, shared and local memory (as
      phase 2 for K1), and a block's 4 directions as the training step
-     runs them; and at the top rungs of its D as phase 2;
+     runs them; and at D = 129, 192 and 256 as phase 2;
   7. the LGA backward kernel (K4) likewise at the training path's head and
      at the `lga3d` backward's fold, float32 and bfloat16: two launches
      bit-identical, its time beside its bound, and its registers, shared
@@ -53,14 +53,14 @@ CUDA toolkit.  Phases, each printing its lines:
      bfloat16; unseeded over the whole width, bit for bit against K1's H
      sweep; its time at both chunks beside its bound and its launches, its
      pace over H, its describe fields (vectorised staging, no local memory)
-     and its step loop in SASS; and at the top rungs of its D (129, 192,
-     256) on small windows, whole copies and element-wise;
+     and its step loop in SASS; and at D = 129, 192 and 256 on small
+     windows, whole copies and element-wise;
  11. its gradient kernel (K6) likewise at the per-shard training block,
      with dx and dw added into and the seed's cotangent (0 without a seed),
      nothing written outside the window or the direction's slot; its time
      beside its bound, its describe fields (vectorised staging, no local
-     memory) and its step loop in SASS; and at the top rungs of its D
-     (129, 192, 256) on a small window;
+     memory) and its step loop in SASS; and at D = 129, 192 and 256 on a
+     small window;
  12. the sharded path: 4 ranks share the card, joined by gloo (boundary
      rows staged through the host; NCCL refuses two ranks on one device),
      through `parallel/launch.py`; H-sharded SGA (wavefront) and LGA (halo)
@@ -116,7 +116,7 @@ CUDA toolkit.  Phases, each printing its lines:
      sga), all-reduce time and peak memory (two ranks on one card: not a
      multi-GPU time); (c) `python -m ganet_tpu_torch.train --mesh_data 2`
      in process (this process rank 0; bf16, remat sga, batch 2) on phase
-     15's SceneFlow-shaped files, 1 epoch of 4 steps with evaluation (rows
+     15's SceneFlow-shaped files, 1 epoch of 2 steps with evaluation (rows
      and checkpoints written once, by rank 0), then the predict CLI and
      the train CLI's resume on one device from its checkpoint; then K1-K4
      against their plain versions at every volume shape the ranks
@@ -134,11 +134,12 @@ CUDA toolkit.  Phases, each printing its lines:
      Adam update's direction; the ranks' parameters the same bits); (b)
      each rank's bfloat16 step time, peak memory and launches of K1, K3,
      K5, K6, K2 and K4 (two ranks on one card: not a multi-GPU time); (c)
-     `python -m ganet_tpu_torch.train --mesh_space 2` in process for 2
-     steps on phase 15's SceneFlow-shaped files, and the predict CLI on one
-     device from its checkpoint; (d) `python -m ganet_tpu_torch.dryrun 4`
-     in process (mesh (2, 2, 1)); then K1-K6 against their plain versions
-     at every shape the ranks launched them at;
+     `python -m ganet_tpu_torch.train --mesh_space 2` in process for 1
+     step on phase 15's SceneFlow-shaped files, and the predict CLI on one
+     device from its checkpoint (phase 19's dryrun of 8 ranks runs the
+     (2, 2, 1) mesh's code as its disp-1 slice, so since PR 25 phase 18
+     runs no dryrun of 4); then K1-K6 against their plain versions at every
+     shape the ranks launched them at;
  19. disparity-sharded inference and training on 2 ranks over `disp`
      that share the card over gloo: (a) GANet_deep's eval forward at
      576x960, max_disp 192, batch 1, the gathered f32 disparity (TF32 off)
@@ -150,7 +151,7 @@ CUDA toolkit.  Phases, each printing its lines:
      one device under phase 18's gates, the ranks' parameters the same
      bits, each rank's launches a step, bf16 step time, all-reduce time
      and peak memory; (c) `python -m ganet_tpu_torch.train --mesh_disp 2`
-     for 2 steps from phase 15's files, its checkpoint read by the
+     for 1 step from phase 15's files, its checkpoint read by the
      predict CLI on one device; (d) `python -m ganet_tpu_torch.dryrun 8`
      in process
      (mesh (2, 2, 2), GANet_small: D halos, H halos and their corners,
@@ -170,7 +171,7 @@ CUDA toolkit.  Phases, each printing its lines:
      parameters and the aggregation's buffers the same bits, each rank's
      launches a step (K1 56, K2 8, K3 28, K4 4), bf16 step time,
      all-reduce time and peak memory; (c) `python -m
-     ganet_tpu_torch.train --mesh_disp 2 --channel_tp 1` for 2 steps from
+     ganet_tpu_torch.train --mesh_disp 2 --channel_tp 1` for 1 step from
      phase 15's files, its checkpoint read by the predict CLI on one
      device; (d) K1-K4 against their plain versions at every shape the
      ranks launched them at;
@@ -216,8 +217,28 @@ CUDA toolkit.  Phases, each printing its lines:
      Chrome trace; a line sets phase 5's forward and device times (when
      phase 5 ran) beside the sum of profile_breakdown's feature_net,
      guidance_net, cost_volume and cost_aggregation rows; then K1 and K2
-     against their plain versions at every shape recorded.
+     against their plain versions at every shape recorded;
+ 24. what the JAX package runs and the port refused or never ran: (a) K1,
+     K3, K5 and K6 at their top rung (D = 257, 384 and 512 = SGA_MAX_D) on
+     the rung volume against their plain versions, per direction, storing
+     and accumulating, f32 and bf16, with their describe lines (vectorised
+     staging, no local memory, the shared memory granted), then each timed
+     per launch at a full-resolution shape at D = 512 beside its bound;
+     (b) GANet_deep at max_disp 1536: at 96x192 through the kernels and
+     through the plain versions (f32, TF32 off, within WIDE_PARITY), its
+     576x960 bf16 eval forward (launches, time, peak memory) and a 240x528
+     batch-2 bf16 step under remat full (launches, finite losses, time,
+     peak memory); (c) GANet11 at full widths: its 576x960 bf16 forward, a
+     240x528 batch-2 step under remat none, `python -m
+     ganet_tpu_torch.train --model GANet11 --kitti2015 1` for 2 steps on a
+     KITTI-2015-shaped tree, the predict CLI from its checkpoint (PNGs
+     against `entry.predict`) and the evaluate CLI over the tree, every
+     run's launches counted; (d) `python -m ganet_tpu_torch.bench_wavefront
+     --single_shard --impl pallas` in process, its rows and its K1 and K5
+     launches; then K1-K5 against their plain versions at every shape
+     those runs launched them at.
 
+Each phase's seconds are printed after it and on one line at the end.
 `--phases 10,11` runs only the listed phases (after phase 1) and prints no
 result line.  A kernel held at a volume shape (`hold_at_path_shapes`) is
 held once a run: a later phase that launched it at that shape names the
@@ -422,9 +443,11 @@ def phase_sga(torch, gen):
     return entry
 
 
-# D of the SGA kernels' top rungs: past 128 bins (8 lanes x 32 bins a column
-# along H, 32 x 8 along W), up to SGA_MAX_D.
+# D of the SGA kernels' upper rungs on a small volume: past 128 bins (8
+# lanes x 32 bins a column along H, 32 x 8 along W; phases 2, 6, 10, 11),
+# and past 256 (16 x 32 along H, 32 x 16 along W; phase 24) up to SGA_MAX_D.
 SGA_RUNG_DS = (129, 192, 256)
+SGA_WIDE_DS = (257, 384, 512)
 SGA_RUNG_SHAPE = (4, 24, 40)  # (N, H, W): rows of whole copies in both dtypes
 
 
@@ -441,16 +464,14 @@ def rung_describe(S, describe, tag, x, w) -> None:
                 raise AssertionError(f"{tag}: staged element-wise or spilled: {info}")
 
 
-def phase_sga_rungs(torch, gen) -> None:
-    """K1 at D = 129, 192 and 256 on a small volume, against its plain
-    version per direction, storing and accumulating, float32 and bfloat16."""
+def phase_sga_rungs(torch, gen, ds=SGA_RUNG_DS) -> None:
+    """K1 at each D of `ds` on a small volume, against its plain version per
+    direction, storing and accumulating, float32 and bfloat16."""
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
     N, H, W = SGA_RUNG_SHAPE
-    if max(SGA_RUNG_DS) != S.SGA_MAX_D:
-        raise AssertionError(f"the top rung {max(SGA_RUNG_DS)} is not SGA_MAX_D {S.SGA_MAX_D}")
-    for D in SGA_RUNG_DS:
+    for D in ds:
         x32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
         w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
         p32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
@@ -854,15 +875,15 @@ def phase_sga_bwd(torch, gen):
     return entry
 
 
-def phase_sga_bwd_rungs(torch, gen) -> None:
-    """K3 at D = 129, 192 and 256 on a small volume, against its plain
-    version per direction (dx and dw, storing and accumulating), float32
-    and bfloat16."""
+def phase_sga_bwd_rungs(torch, gen, ds=SGA_RUNG_DS) -> None:
+    """K3 at each D of `ds` on a small volume, against its plain version per
+    direction (dx and dw, storing and accumulating), float32 and
+    bfloat16."""
     from ganet_tpu_torch.ops import sga as S
     from ganet_tpu_torch.ops.normalize import l1_normalize
 
     N, H, W = SGA_RUNG_SHAPE
-    for D in SGA_RUNG_DS:
+    for D in ds:
         x32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
         w32 = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2)
         g32 = torch.randn((N, D, H, W), device="cuda", generator=gen)
@@ -1062,9 +1083,18 @@ def phase_seeded_fwd(torch, gen, smi):
                     f"{sass_line(ops)}")
     if faults:
         raise AssertionError("; ".join(faults))
-    # The top rungs of D, on a small volume.
+    seeded_fwd_rungs(torch, gen, SGA_RUNG_DS)
+    return entry
+
+
+def seeded_fwd_rungs(torch, gen, ds) -> None:
+    """K5 at each D of `ds` on a small volume, on a window of whole copies
+    (vectorised staging) and on a ragged one (element-wise)."""
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.ops.normalize import l1_normalize
+
     Nr, Hr, Wr = SGA_RUNG_SHAPE
-    for Dr in SGA_RUNG_DS:
+    for Dr in ds:
         x32 = torch.randn((Nr, Dr, Hr, Wr), device="cuda", generator=gen)
         w32 = l1_normalize(torch.randn((Nr, 4, 5, Hr, Wr), device="cuda", generator=gen), dim=2)
         for c0, nc in K5_RUNG_WINDOWS:
@@ -1077,11 +1107,10 @@ def phase_seeded_fwd(torch, gen, smi):
                 log(f"    K5 {tag}: {describe_line(info)}, {info['blocks_per_sm']} blocks an SM")
                 if info["vectorised"] != ((c0, nc) == K5_RUNG_WINDOWS[0]) or info["local_bytes"]:
                     raise AssertionError(f"{tag}: K5's staging is not the window's, or it spilled: {info}")
-    return entry
 
 
-# K6's rungs: D = 129, 192 and 256 on SGA_RUNG_SHAPE's volume, in the window
-# [8, 32) of its W = 40 (whole copies in both dtypes).
+# K6's rungs: SGA_RUNG_DS and SGA_WIDE_DS on SGA_RUNG_SHAPE's volume, in the
+# window [8, 32) of its W = 40 (whole copies in both dtypes).
 K6_RUNG_WINDOW = (8, 24)
 
 
@@ -1208,11 +1237,19 @@ def phase_seeded_bwd(torch, gen, smi):
             if want in name:
                 log(f"  sga_bwd_seeded step loop {str(dtype)[6:]} (G={info['lanes']}, B={info['bins']}): "
                     f"{sass_line(ops)}")
-    # The top rungs of D, on a small window; A from the plain forward.
+    seeded_bwd_rungs(torch, gen, SGA_RUNG_DS)
+    return entry
+
+
+def seeded_bwd_rungs(torch, gen, ds) -> None:
+    """K6 at each D of `ds` on a small window, A from the plain forward."""
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.ops.normalize import l1_normalize
+
     Nr, Hr, Wr = SGA_RUNG_SHAPE
     c0, nc = K6_RUNG_WINDOW
     rwin = slice(c0, c0 + nc)
-    for Dr in SGA_RUNG_DS:
+    for Dr in ds:
         x32 = torch.randn((Nr, Dr, Hr, Wr), device="cuda", generator=gen)
         w32 = l1_normalize(torch.randn((Nr, 4, 5, Hr, Wr), device="cuda", generator=gen), dim=2)
         s32 = torch.randn((Nr, Dr, nc), device="cuda", generator=gen)
@@ -1236,7 +1273,6 @@ def phase_seeded_bwd(torch, gen, smi):
             log(f"    K6 {tag}: {describe_line(info)}, {info['blocks_per_sm']} blocks an SM")
             if not info["vectorised"] or info["local_bytes"]:
                 raise AssertionError(f"{tag}: K6 staged element-wise or spilled: {info}")
-    return entry
 
 
 # Phase 12: the sharded path on 4 ranks sharing the card, over gloo.  The
@@ -2042,7 +2078,6 @@ def phase_train_from_files(torch, gen, smi) -> None:
     from ganet_tpu_torch.entry import build_model
     from ganet_tpu_torch.train import Trainer
     from ganet_tpu_torch.train.checkpoint import load_inference_state
-    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
 
     (H0, W0), (CH, CW), D = SCENEFLOW_FRAME, TRAIN_CROP, 192
     rng = np.random.default_rng(15)
@@ -2050,21 +2085,7 @@ def phase_train_from_files(torch, gen, smi) -> None:
 
     def counted(tag, fn, want):
         """Run `fn` with every launch recorded; the counts must be `want`."""
-        seen = Counter()
-        torch.cuda.synchronize()
-        with recording_shapes(seen):
-            reset_launches()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = read_launches()
-        full = {k: want.get(k, 0) for k in launches}
-        if launches != full:
-            raise AssertionError(f"{tag}: launched {launches}, expected {full}")
-        shapes.update(seen)
-        log(f"{tag}: {secs:.2f} s; launches {launches} at {recorded_line(seen, launches)}")
-        return out
+        return run_counted(torch, tag, fn, want, shapes)[0]
 
     def total(steps, remat, forwards=0):
         return {k: steps * STEP_LAUNCHES[remat][k] + forwards * FORWARD_LAUNCHES.get(k, 0)
@@ -2487,7 +2508,10 @@ ST_RANKS = 2
 ST_MAX_DISP = 192
 ST_COUNTED = 1  # bf16 steps a rank whose launches are counted
 ST_TIMED = 1  # timed steps after the counted ones (ranks time-slicing the card: plumbing times)
-ST_CLI_STEPS = 2
+# Steps of the train CLI on a mesh (phases 16, 18-20; with phase 16's
+# evaluation and resume): 2 and 4 before PR 25, cut to make room for phase 24.
+ST_CLI_STEPS = 1
+DP_CLI_STEPS = 2
 
 
 def sharded_step_launches(cfg, W: int, remat: str) -> dict:
@@ -2527,7 +2551,7 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
     one device on the same batch (on a `data`-only mesh the ranks' whole
     states the same bits), (b) each rank's launches a step (`want`, by
     remat policy), its bf16 step time under remat sga and peak memory, (c)
-    the train CLI on the mesh from files (with `cli_eval`: FILE_STEPS steps
+    the train CLI on the mesh from files (with `cli_eval`: DP_CLI_STEPS steps
     and its evaluation of one validation frame a `data` rank, best/, and
     the checkpoint resumed on one device) and the predict CLI on one device
     from its checkpoint, (d) the dryrun on `dryrun_n` ranks (none for
@@ -2660,7 +2684,7 @@ def sharded_step_checks(torch, gen, smi, tag: str, mesh: tuple, seed: int, want:
     # (with `cli_eval`, evaluating one validation frame a `data` rank), the
     # predict CLI on one device from its checkpoint, and with `cli_eval` its
     # resume on one device.
-    steps, n_val = (FILE_STEPS, mesh[0]) if cli_eval else (ST_CLI_STEPS, 1)
+    steps, n_val = (DP_CLI_STEPS, mesh[0]) if cli_eval else (ST_CLI_STEPS, 1)
     rng = np.random.default_rng(seed)
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "sceneflow")
@@ -2771,8 +2795,7 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
     (`sharded_step_checks`): (a) parity with one device on the same batch,
     (b) each rank's launches, step time and peak memory, (c) the train CLI
     with --mesh_space from files and the predict CLI on one device from
-    its checkpoint, (d) the dryrun on 4 ranks; then K1-K6 held at every
-    shape the ranks launched.  `device` "cpu" rehearses the phase's control
+    its checkpoint; then K1-K6 held at every shape the ranks launched.  `device` "cpu" rehearses the phase's control
     flow on the plain versions (no times, no kernels to hold)."""
     from ganet_tpu_torch import ganet_deep
 
@@ -2780,7 +2803,7 @@ def phase_spatial_train(torch, gen, smi, entries, device: str = "cuda") -> None:
     for e in entries:
         if e["name"] == "sga_bwd_seeded":  # K6's model path: a step's launches over the ranks
             e["launches"] = ST_RANKS * want["sga_bwd_seeded"]
-    sharded_step_checks(torch, gen, smi, "[18]", (1, ST_RANKS, 1), 18, {"sga": want}, 4, device)
+    sharded_step_checks(torch, gen, smi, "[18]", (1, ST_RANKS, 1), 18, {"sga": want}, None, device)
 
 
 # Phase 19: disparity-sharded inference and training of GANet_deep on
@@ -3408,6 +3431,439 @@ def phase_eval_profilers(torch, gen, smi, main_path=None, device: str = "cuda") 
         hold_at_path_shapes(torch, gen, shapes, "[23]")
 
 
+# Phase 24: what the JAX package runs and the port refused or never ran.
+# The per-launch timing shapes at D = 512 (max_disp 1536): K1 at GANet_deep's
+# full-res block at 576x960, K3 at the 240x528 batch-2 step's, K5 and K6 at
+# the wavefront's per-shard eval and training chunks (K5_SHAPES) with D 512.
+WIDE_K1 = (32, 512, 192, 320)
+WIDE_K3 = (64, 512, 80, 176)
+WIDE_K5 = (32, 512, 48, 320, 128, 128)
+WIDE_K6 = (64, 512, 20, 176, 48, 128)
+WIDE_MAX_DISP = 1536
+# GANet_deep at max_disp 1536 through the kernels against the plain
+# versions, f32 with TF32 off, at 96x192 (SGA volumes of 512 and 256 bins),
+# both judged by the plain versions in float64.  Random weights spread the
+# disparities over +-840 px, and the float32 noise of the whole forward
+# grows with that range and with D (4e-3 to 9e-3 px at D = 192, 2.1e-2 to
+# 3.2e-2 at 768, phase 4; the kernels against the plain versions 1.272e-1
+# px at 1536 on an H100, PR 25), so no absolute tolerance carries over:
+# the kernels' float32 output may be at most WIDE_PARITY_FACTOR times as far
+# from the float64 one as the plain versions' float32 output is, by the
+# mean and by the worst pixel (a bin range left unaggregated moves pixels
+# by whole px).
+WIDE_PARITY = ((96, 192), 3.0)
+EVAL_FRAME = (576, 960)
+WIDE_TRAIN_DISP = 192  # synthetic disparities of the training pairs, px
+WIDE_STEPS = 3  # timed steps after the counted one
+KITTI_TRAIN_FRAMES = 4
+
+
+def model_launches(model_cfg, remat=None) -> dict:
+    """Launches of one eval forward (remat None) or one training step under
+    `remat`: 4 sweeps an SGA block, 2 LGA calls of `lga_repeats` passes in
+    the final head; remat "sga" and "full" run the SGA blocks and that
+    head's forward again in backward."""
+    n_sga = 4 * (model_cfg.num_sga_full + model_cfg.num_sga_half)
+    n_lga = 2 * model_cfg.lga_repeats
+    if remat is None:
+        return {"sga_fwd": n_sga, "lga_fwd": n_lga}
+    again = 2 if remat != "none" else 1
+    return {"sga_fwd": again * n_sga, "lga_fwd": again * n_lga, "sga_bwd": n_sga, "lga_bwd": n_lga}
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_counted(torch, tag, fn, want, shapes, device: str = "cuda"):
+    """Run `fn` with every launch recorded into `shapes`; on the card the
+    counts must be `want` (every other kernel 0).  Returns (fn's result,
+    seconds)."""
+    from collections import Counter
+
+    from ganet_tpu_torch.utils.profiling import read_launches, recording_shapes, reset_launches
+
+    seen = Counter()
+    sync(torch, device)
+    with recording_shapes(seen):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch, device)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    full = {k: want.get(k, 0) for k in launches}
+    if device == "cuda" and launches != full:
+        raise AssertionError(f"{tag}: launched {launches}, expected {full}")
+    shapes.update(seen)
+    log(f"{tag}: {secs:.2f} s; launches {launches} at {recorded_line(seen, launches)}")
+    return out, secs
+
+
+def launch_bound(nbytes: float, flops: float):
+    """(bound ms, "bytes" or "operations") of a launch."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_wide_rungs(torch, gen, smi) -> dict:
+    """K1, K3, K5 and K6 at D = 257, 384 and 512 on the rung volume against
+    their plain versions (per direction, storing and accumulating, f32 and
+    bf16; describe: vectorised staging, no local memory, the shared memory
+    granted), then each timed per launch at one full-resolution shape at
+    D = 512 beside its bound.  Returns {kernel: (ms, bound ms)} in bf16."""
+    from ganet_tpu_torch.ops import sga as S
+    from ganet_tpu_torch.ops.normalize import l1_normalize
+
+    if max(SGA_WIDE_DS) != S.SGA_MAX_D:
+        raise AssertionError(f"the top rung {max(SGA_WIDE_DS)} is not SGA_MAX_D {S.SGA_MAX_D}")
+    phase_sga_rungs(torch, gen, SGA_WIDE_DS)
+    phase_sga_bwd_rungs(torch, gen, SGA_WIDE_DS)
+    seeded_fwd_rungs(torch, gen, SGA_WIDE_DS)
+    seeded_bwd_rungs(torch, gen, SGA_WIDE_DS)
+
+    timed, spills = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        # K1 and K3 along W and along H, storing and accumulating.
+        for name, shape in (("sga_fwd", WIDE_K1), ("sga_bwd", WIDE_K3)):
+            N, D, H, W = shape
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2).to(dtype)
+            out = torch.zeros_like(x)
+            if name == "sga_bwd":
+                a = S.sga_sweep_kernel(x, w, "h", False, direction=2)
+                gbar = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                dw = torch.zeros_like(w)
+            for direction in (0, 2):
+                axis = S.DIRECTIONS[direction][0]
+                for accumulate in (False, True):
+                    if name == "sga_fwd":
+                        ms = cuda_ms(torch, lambda: S.sga_sweep_kernel(
+                            x, w, axis, False, direction=direction, out=out if accumulate else None), reps=5)
+                        nbytes = ((2 + accumulate) * x.numel() + 5 * N * H * W) * x.element_size()
+                        bound, by = launch_bound(nbytes, 10 * x.numel())
+                        info = S.sga_describe(x, w, axis, direction, accumulate)
+                    else:
+                        ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_kernel(
+                            x, w, a, gbar, axis, False, direction=direction,
+                            dx=out if accumulate else None, dw=dw), reps=5)
+                        nbytes = ((4 + accumulate) * x.numel() + 10 * N * H * W) * x.element_size()
+                        bound, by = launch_bound(nbytes, 25 * x.numel())
+                        info = S.sga_bwd_describe(x, w, axis, direction, accumulate)
+                    kind = "accumulating" if accumulate else "storing"
+                    log(f"  [24] {name} {shape} {dt} {axis} {kind}: {ms:.4f} ms a launch, bound "
+                        f"{bound:.4f} ms ({by}), {bound / ms:.1%} of it; {describe_line(info)}; card {smi}")
+                    if not info["vectorised"] or info["local_bytes"]:
+                        spills.append(f"{name} {shape} {dt} {axis} {kind}: {info}")
+                    if dtype == torch.bfloat16:
+                        timed[f"{name} {axis} {kind}"] = (ms, bound)
+            del x, w, out
+            if name == "sga_bwd":
+                del a, gbar, dw
+            torch.cuda.empty_cache()
+        # K5 and K6 on the chunk's window.
+        N, D, H, W, col0, cols = WIDE_K5
+        x = torch.randn((N, D, H, W), device="cuda", generator=gen).to(dtype)
+        w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2).to(dtype)
+        seed = torch.randn((N, D, cols), device="cuda", generator=gen).to(dtype)
+        out = torch.empty_like(x)
+        ms = cuda_ms(torch, lambda: S.sga_sweep_seeded_kernel(
+            x, w, False, seed, True, direction=2, col0=col0, cols=cols, out=out), reps=20)
+        bound, by, _ = seeded_fwd_bound(x, cols)
+        info = S.sga_fwd_seeded_describe(x, w, seed, direction=2, col0=col0, cols=cols)
+        log(f"  [24] sga_fwd_seeded {(N, D, H, W)} [{col0}:{col0 + cols}] {dt}: {ms:.4f} ms a launch, "
+            f"bound {bound:.4f} ms ({by}), {bound / ms:.1%} of it; {describe_line(info)}, "
+            f"{info['blocks_per_sm']} blocks an SM; card {smi}")
+        if not info["vectorised"] or info["local_bytes"]:
+            spills.append(f"sga_fwd_seeded {dt}: {info}")
+        if dtype == torch.bfloat16:
+            timed["sga_fwd_seeded"] = (ms, bound)
+        del x, w, seed, out
+        N, D, H, W, col0, cols = WIDE_K6
+        x = torch.randn((N, D, H, W), device="cuda", generator=gen).to(dtype)
+        w = l1_normalize(torch.randn((N, 4, 5, H, W), device="cuda", generator=gen), dim=2).to(dtype)
+        seed = torch.randn((N, D, cols), device="cuda", generator=gen).to(dtype)
+        a, _ = S.sga_sweep_seeded_kernel(x, w, False, seed, True, direction=2, col0=col0, cols=cols)
+        gbar = torch.randn((N, D, H, W), device="cuda", generator=gen).to(dtype)
+        dbound = torch.randn((N, D, cols), device="cuda", generator=gen)
+        dx, dw = torch.zeros_like(x), torch.zeros_like(w)
+        ms = cuda_ms(torch, lambda: S.sga_sweep_bwd_seeded_kernel(
+            x, w, a, gbar, False, seed, True, direction=2, col0=col0, cols=cols, dboundary=dbound,
+            dx=dx, dw=dw), reps=20)
+        bound, by, _ = seeded_bwd_bound(x, cols)
+        info = S.sga_bwd_seeded_describe(x, w, seed, direction=2, col0=col0, cols=cols)
+        log(f"  [24] sga_bwd_seeded {(N, D, H, W)} [{col0}:{col0 + cols}] {dt}: {ms:.4f} ms a launch, "
+            f"bound {bound:.4f} ms ({by}), {bound / ms:.1%} of it; {describe_line(info)}, "
+            f"{info['blocks_per_sm']} blocks an SM; card {smi}")
+        if not info["vectorised"] or info["local_bytes"]:
+            spills.append(f"sga_bwd_seeded {dt}: {info}")
+        if dtype == torch.bfloat16:
+            timed["sga_bwd_seeded"] = (ms, bound)
+        del x, w, seed, a, gbar, dbound, dx, dw
+        torch.cuda.empty_cache()
+    if spills:
+        raise AssertionError("[24] element-wise staging or local memory at D = 512: " + "; ".join(spills))
+    return timed
+
+
+def phase_wide_model(torch, gen, smi, shapes, device: str = "cuda") -> None:
+    """GANet_deep at max_disp 1536: at 96x192 through the kernels and through
+    the plain versions (f32, TF32 off), both against the plain versions in
+    f64 (WIDE_PARITY); the 576x960 bf16 eval forward through
+    `build_model` and `predict` (launches, time, peak); one 240x528 batch-2
+    bf16 training step under remat full (launches, finite loss, time,
+    peak).  The kernels' launches are recorded into `shapes`.  `device`
+    "cpu" rehearses the control flow on the plain versions."""
+    from ganet_tpu_torch import ganet_deep
+    from ganet_tpu_torch.entry import build_model, predict
+
+    D = WIDE_MAX_DISP
+    (H, W), factor = WIDE_PARITY
+    torch.backends.cudnn.deterministic = True
+    left = torch.rand((1, H, W, 3), device=device, generator=gen)
+    right = torch.rand((1, H, W, 3), device=device, generator=gen)
+    outs = {}
+    for name, impl, dtype in (("kernel", "kernel", "float32"), ("torch", "torch", "float32"),
+                              ("torch64", "torch", "float64")):
+        model = build_model(ganet_deep(max_disp=D, impl=impl, compute_dtype=dtype), device=device,
+                            seed=0)
+        if dtype == "float64":
+            model = model.double()
+        outs[name] = predict(model, left, right).double()
+        del model
+    err = {k: (outs[k] - outs["torch64"]).abs() for k in ("kernel", "torch")}
+    mean = {k: v.mean().item() for k, v in err.items()}
+    worst = {k: v.max().item() for k, v in err.items()}
+    ok = (bool(torch.isfinite(outs["kernel"]).all()) and mean["kernel"] <= factor * mean["torch"]
+          and worst["kernel"] <= factor * worst["torch"])
+    log(f"[24] GANet_deep {H}x{W} D={D} f32 (TF32 off) against the plain versions in f64: kernels mean "
+        f"{mean['kernel']:.3e} / worst {worst['kernel']:.3e} px, plain versions in f32 mean "
+        f"{mean['torch']:.3e} / worst {worst['torch']:.3e} px (at most {factor}x theirs); kernels vs "
+        f"plain f32 worst {(outs['kernel'] - outs['torch']).abs().max().item():.3e} px; range "
+        f"[{outs['kernel'].min().item():.3f}, {outs['kernel'].max().item():.3f}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"model forward at D={D} through the kernels is further from float64 than "
+                             "the plain versions in float32")
+    del outs, err, left, right
+    torch.backends.cudnn.deterministic = False
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    forward_runs(torch, smi, "[24] GANet_deep", ganet_deep(max_disp=D, compute_dtype="bfloat16"), gen,
+                 shapes, device)
+    train_steps(torch, smi, "[24] GANet_deep", ganet_deep(max_disp=D, compute_dtype="bfloat16",
+                                                         remat="full"), shapes, device)
+
+
+def train_steps(torch, smi, tag, model_cfg, shapes, device: str = "cuda") -> None:
+    """One counted 240x528 batch-2 training step of `model_cfg` on a
+    synthetic batch, then WIDE_STEPS timed ones: launches, finite losses,
+    step time and peak memory."""
+    import math
+
+    from ganet_tpu_torch.config import DataConfig, TrainConfig
+    from ganet_tpu_torch.data import SyntheticStereoDataset, stack
+    from ganet_tpu_torch.train import create_train_state, make_train_step
+
+    (H, W), B = TRAIN_CROP, 2
+    cfg = TrainConfig(model=model_cfg, data=DataConfig(crop_height=H, crop_width=W, kind="synthetic"),
+                      batch_size=B)
+    cuda = device == "cuda"
+    state = create_train_state(cfg, device=device)
+    step = make_train_step(cfg)
+    batch = stack(SyntheticStereoDataset(H, W, WIDE_TRAIN_DISP), range(B))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    name = (f"{tag} {H}x{W} D={model_cfg.max_disp} bf16 batch {B} train step, remat "
+            f"{model_cfg.remat}")
+    m, _ = run_counted(torch, f"{name} (counted)", lambda: step(state, batch),
+                       model_launches(model_cfg, model_cfg.remat), shapes, device)
+    losses, times = [m["loss"].item()], []
+    for _ in range(WIDE_STEPS):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        sync(torch, device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    log(f"{name}: losses {', '.join(f'{v:.4f}' for v in losses)}; step time {min(times):.1f} ms "
+        f"(min of {len(times)}; all {', '.join(f'{t:.1f}' for t in times)}); peak memory "
+        f"{peak:.2f} GiB; card {smi}")
+    del state, step, batch, m
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def forward_runs(torch, smi, tag, cfg, gen, shapes, device: str = "cuda") -> None:
+    """`cfg`'s eval forward at EVAL_FRAME, batch 1, through `build_model` and
+    `predict` from a seeded init: a counted run, then 3 timed ones; its
+    shape, finite values, latency and peak memory."""
+    from ganet_tpu_torch.entry import build_model, predict
+
+    cuda = device == "cuda"
+    model = build_model(cfg, device=device, seed=0)
+    H, W = EVAL_FRAME
+    left = torch.rand((1, H, W, 3), device=device, generator=gen)
+    right = torch.rand((1, H, W, 3), device=device, generator=gen)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    name = f"{tag} {H}x{W} D={cfg.max_disp} {cfg.compute_dtype} batch 1 eval forward"
+    disp, _ = run_counted(torch, f"{name} (counted)", lambda: predict(model, left, right),
+                          model_launches(cfg), shapes, device)
+    times = []
+    for _ in range(3):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        predict(model, left, right)
+        sync(torch, device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    if tuple(disp.shape) != (1, H, W) or not bool(torch.isfinite(disp).all()):
+        raise AssertionError(f"{name}: shape {tuple(disp.shape)} or non-finite")
+    log(f"{name}: disparity range [{disp.min().item():.3f}, {disp.max().item():.3f}]; latency "
+        f"{min(times):.1f} ms (min of 3; all {', '.join(f'{t:.1f}' for t in times)}); peak memory "
+        f"{peak:.2f} GiB; card {smi}")
+    del model, left, right, disp
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def phase_ganet11(torch, gen, smi, shapes, device: str = "cuda") -> None:
+    """GANet11 at full widths: the 576x960 bf16 eval forward through
+    `build_model` and `predict`, a 240x528 batch-2 bf16 training step under
+    remat none, then KITTI 2015 from files: a KITTI-layout tree from
+    `write_kitti`, `python -m ganet_tpu_torch.train --model GANet11
+    --kitti2015 1` for 2 steps, the predict CLI from its checkpoint (the
+    PNGs against `entry.predict`) and the evaluate CLI over the list.  The
+    readers are native where the host has g++ and libpng, else Python (the
+    card's host has no libpng); the lines say which."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from ganet_tpu_torch import evaluate, ganet11
+    from ganet_tpu_torch import predict as predict_cli
+    from ganet_tpu_torch import train as train_cli
+    from ganet_tpu_torch.data import native_io
+    from ganet_tpu_torch.data.dataset import StereoDataset
+    from ganet_tpu_torch.entry import build_model
+    from ganet_tpu_torch.train.checkpoint import load_inference_state
+
+    D = 192
+    cfg = ganet11(max_disp=D, compute_dtype="bfloat16")
+    forward_runs(torch, smi, "[24] GANet11", cfg, gen, shapes, device)
+    train_steps(torch, smi, "[24] GANet11", ganet11(max_disp=D, compute_dtype="bfloat16",
+                                                    remat="none"), shapes, device)
+
+    (H0, W0), (CH, CW), (TH, TW) = KITTI_FRAME, KITTI_CROP, TRAIN_CROP
+    rng = np.random.default_rng(24)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        names = [f"{i:06d}_10.png" for i in range(KITTI_TRAIN_FRAMES)]
+        lst, _ = write_kitti(root, names, (H0, W0), rng)
+        save = os.path.join(tmp, "ckpt")
+        data = ["--kitti2015", "1", "--data_path", root, "--model", "GANet11", "--max_disp", str(D),
+                "--bf16", "1"] + ([] if device == "cuda" else ["--device", "cpu"])
+        steps = 2
+        why = None if native_io.native_available() else native_io.why_unavailable()
+        reads = f"frames read in Python: {why}" if why else "frames read natively"
+        trainer, _ = run_counted(
+            torch, f"[24] train CLI --model GANet11 --kitti2015 1 ({steps} steps of batch 2, "
+            f"remat sga; {reads})",
+            lambda: train_cli.main(data + ["--training_list", lst, "--val_list", lst, "--batchSize", "2",
+                                           "--crop_height", str(TH), "--crop_width", str(TW),
+                                           "--nEpochs", "1", "--steps", str(steps), "--log_every", "1",
+                                           "--save_path", save]),
+            {k: steps * v for k, v in model_launches(cfg, "sga").items()}, shapes, device)
+        rows = train_rows(save, "epoch0")
+        ok = (trainer.cfg.data.kind == "kitti2015" and trainer.cfg.model.name == "GANet11"
+              and [r["step"] for r in rows] == list(range(1, steps + 1))
+              and all(math.isfinite(r["loss"]) for r in rows) and os.path.isdir(os.path.join(save, "0")))
+        log(f"[24] GANet11 KITTI 2015 rows: " + "; ".join(
+            f"step {r['step']} loss {r['loss']:.4f} epe {r['epe']:.3f}" for r in rows)
+            + f"; checkpoint 0/ {sorted(os.listdir(os.path.join(save, '0')))} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[24] the GANet11 KITTI 2015 run did not train and save")
+        del trainer
+
+        one = root + "_one.list"
+        with open(one, "w") as f:
+            f.write(names[0])
+        crop = ["--crop_height", str(CH), "--crop_width", str(CW), "--resume", save]
+        written, _ = run_counted(
+            torch, "[24] predict CLI --model GANet11 from the trained checkpoint, 1 frame",
+            lambda: predict_cli.main(data + crop + ["--test_list", one,
+                                                    "--save_path", os.path.join(tmp, "result")]),
+            model_launches(cfg), shapes, device)
+        model = build_model(cfg, device=device, state_dict=load_inference_state(save))
+        ds = StereoDataset(data_path=root, list_path=one, crop_height=CH, crop_width=CW,
+                           kind="kitti2015", training=False, max_disp=D)
+        hold_pngs(written, ds, model, (H0, W0))
+        del model
+        metrics, _ = run_counted(torch, "[24] evaluate CLI --model GANet11 over the list",
+                                 lambda: evaluate.main(data + crop + ["--test_list", lst]),
+                                 {k: len(names) * v for k, v in model_launches(cfg).items()}, shapes,
+                                 device)
+        log(f"[24] evaluate GANet11 over {len(names)} KITTI-shaped frames: {json.dumps(metrics)}")
+        if sorted(metrics) != ["d1_all", "epe", "rate_1px", "rate_2px", "rate_3px"] or not all(
+                v == v and 0 <= v < float("inf") for v in metrics.values()):
+            raise AssertionError(f"[24] evaluate GANet11: {metrics}")
+
+
+def phase_wavefront_bench(torch, smi, shapes, argv=()) -> None:
+    """`python -m ganet_tpu_torch.bench_wavefront --single_shard --impl
+    pallas` in process at its defaults: its lines, and K1 and K5 launched as
+    its calls imply (a warm-up and --reps calls a mode; two W sweeps and the
+    chunks' two seeded H sweeps a forced wavefront)."""
+    import io
+
+    from ganet_tpu_torch import bench_wavefront
+    from ganet_tpu_torch.parallel.sharded_sga import chunk_layout
+
+    argv = ["--single_shard", "--impl", "pallas", *argv]
+    args = bench_wavefront.parse_args(argv)
+    calls = 1 + args.reps
+    n_chunks = [len(chunk_layout(args.width, int(c))[1]) for c in args.chunks.split(",") if int(c) > 1]
+    want = {"sga_fwd": calls * (4 + 4 + 2 * len(n_chunks)), "sga_fwd_seeded": calls * 2 * sum(n_chunks)}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_counted(torch, "[24] bench_wavefront --single_shard --impl pallas",
+                    lambda: bench_wavefront.main(argv), want, shapes, args.device)
+    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    for row in rows:
+        log(f"  [24] {json.dumps(row)}")
+    modes = [r["mode"] for r in rows]
+    if modes != ["plain_sga", "sharded_S1"] + [f"pipeline_S1_chunks{n}" for n in n_chunks] or not all(
+            r["wall_ms"] > 0 and r["impl"] == "pallas" for r in rows):
+        raise AssertionError(f"[24] bench_wavefront rows: {rows}")
+    log(f"[24] bench_wavefront: {want['sga_fwd_seeded']} K5 and {want['sga_fwd']} K1 launches; card {smi}")
+
+
+def phase_wide(torch, gen, smi) -> None:
+    """Phase 24: the SGA kernels past D = 256, GANet_deep at max_disp 1536,
+    GANet11 with KITTI 2015 from files, and bench_wavefront --impl pallas;
+    then K1-K5 against their plain versions at every shape those runs
+    launched them at."""
+    from collections import Counter
+
+    timed = phase_wide_rungs(torch, gen, smi)
+    log("[24] D = 512 per launch, bf16 (ms, bound ms): "
+        + "; ".join(f"{k} {ms:.4f} / {b:.4f}" for k, (ms, b) in timed.items()))
+    shapes = Counter()
+    phase_wide_model(torch, gen, smi, shapes)
+    phase_ganet11(torch, gen, smi, shapes)
+    phase_wavefront_bench(torch, smi, shapes)
+    log(f"[24] K1-K5 against their plain versions at the {len(shapes)} volume shapes above")
+    hold_at_path_shapes(torch, gen, shapes, "[24]")
+
+
 def main() -> int:
     try:
         import torch
@@ -3436,87 +3892,69 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     smi = phase_card(torch)
+    seconds = {1: time.perf_counter() - t0}
     entries = []
-    if want(2):
-        log("[2] K1 SGA sweep kernel vs plain version")
+    state = {"main_path": None}
+
+    def run(n: int, label: str, fn) -> None:
+        """Phase n, if chosen, with the run's clock before it and its own
+        seconds after it."""
+        if not want(n):
+            return
+        log(f"[{n}] {label} ({time.perf_counter() - t0:.1f} s)")
+        t = time.perf_counter()
+        fn()
+        seconds[n] = time.perf_counter() - t
+        log(f"[{n}] {seconds[n]:.1f} s")
+
+    def sga():
         entries.append(phase_sga(torch, gen))
         phase_sga_rungs(torch, gen)
-    if want(3):
-        log("[3] K2 LGA kernel vs plain version")
-        entries.append(phase_lga(torch, gen, smi))
-    if want(4):
-        phase_model_parity(torch, gen)
-    main_path = None
-    if want(5):
-        main_path = phase_main_path(torch, gen, smi, entries)
-    if want(6):
-        log("[6] K3 SGA gradient-sweep kernel vs plain version")
+
+    def main_path():
+        state["main_path"] = phase_main_path(torch, gen, smi, entries)
+
+    def sga_bwd():
         entries.append(phase_sga_bwd(torch, gen))
         phase_sga_bwd_rungs(torch, gen)
-    if want(7):
-        log("[7] K4 LGA backward kernel vs plain version")
-        entries.append(phase_lga_bwd(torch, gen))
-    if want(8):
-        phase_grad_parity(torch)
-    if want(9):
-        phase_train_path(torch, smi, entries)
-    if want(10):
-        log(f"[10] K5 seeded SGA sweep kernel vs plain version ({time.perf_counter() - t0:.1f} s)")
-        entries.append(phase_seeded_fwd(torch, gen, smi))
-    if want(11):
-        log(f"[11] K6 seeded SGA gradient-sweep kernel vs plain version ({time.perf_counter() - t0:.1f} s)")
-        entries.append(phase_seeded_bwd(torch, gen, smi))
-    if want(12):
-        log(f"[12] sharded SGA wavefront and halo LGA on {SHARDS} ranks sharing the card "
-            f"({time.perf_counter() - t0:.1f} s)")
-        phase_sharded(torch, smi, entries)
-    if want(13):
-        log(f"[13] K7 channel-wise LGA kernel and the lga3d path ({time.perf_counter() - t0:.1f} s)")
-        entries.append(phase_lga3d(torch, gen, smi))
-    if want(14):
-        log(f"[14] the from-files path: predict, evaluate and bench ({time.perf_counter() - t0:.1f} s)")
-        phase_from_files(torch, gen, smi)
-    if want(15):
-        log(f"[15] training from files: train, resume, left_right, predict, remat "
-            f"({time.perf_counter() - t0:.1f} s)")
-        phase_train_from_files(torch, gen, smi)
-    if want(16):
-        log(f"[16] data-parallel training on {DP_RANKS} ranks sharing the card "
-            f"({time.perf_counter() - t0:.1f} s)")
-        t16 = time.perf_counter()
-        phase_data_parallel(torch, gen, smi)
-        log(f"[16] {time.perf_counter() - t16:.1f} s")
-    if want(17):
-        log(f"[17] H-sharded inference on {SP_RANKS} ranks sharing the card, and the predict CLI "
-            f"on meshes ({time.perf_counter() - t0:.1f} s)")
-        phase_spatial(torch, gen, smi, entries)
-    if want(18):
-        log(f"[18] H-sharded training on {ST_RANKS} ranks sharing the card, the train CLI with "
-            f"--mesh_space and the dryrun ({time.perf_counter() - t0:.1f} s)")
-        phase_spatial_train(torch, gen, smi, entries)
-    if want(19):
-        log(f"[19] disparity-sharded inference and training on {DS_RANKS} ranks sharing the card, the "
-            f"train CLI with --mesh_disp and the dryrun of 8 ({time.perf_counter() - t0:.1f} s)")
-        phase_disp(torch, gen, smi)
-    if want(20):
-        log(f"[20] channel tensor parallelism on {CT_RANKS} ranks sharing the card and the train CLI "
-            f"with --channel_tp 1 ({time.perf_counter() - t0:.1f} s)")
-        phase_channel_tp(torch, gen, smi)
-    if want(21):
-        log(f"[21] the native decoder and feeding the step ({time.perf_counter() - t0:.1f} s)")
-        phase_native_io(torch, smi)
-    if want(22):
-        log(f"[22] the training benchmarks: bench_train, profile_train, bench_scaling "
-            f"({time.perf_counter() - t0:.1f} s)")
-        t22 = time.perf_counter()
-        phase_train_bench(torch, smi)
-        log(f"[22] {time.perf_counter() - t22:.1f} s")
-    if want(23):
-        log(f"[23] the eval-forward profilers: bench_conv3d, profile_head, profile_breakdown, "
-            f"profile_agg ({time.perf_counter() - t0:.1f} s)")
-        t23 = time.perf_counter()
-        phase_eval_profilers(torch, gen, smi, main_path)
-        log(f"[23] {time.perf_counter() - t23:.1f} s")
+
+    run(2, "K1 SGA sweep kernel vs plain version", sga)
+    run(3, "K2 LGA kernel vs plain version", lambda: entries.append(phase_lga(torch, gen, smi)))
+    run(4, "the whole model through the kernels vs the plain versions", lambda: phase_model_parity(torch, gen))
+    run(5, "the eval path: GANet_deep 576x960 bf16", main_path)
+    run(6, "K3 SGA gradient-sweep kernel vs plain version", sga_bwd)
+    run(7, "K4 LGA backward kernel vs plain version", lambda: entries.append(phase_lga_bwd(torch, gen)))
+    run(8, "model gradients through the kernels vs the plain versions", lambda: phase_grad_parity(torch))
+    run(9, "the training path: GANet_deep 240x528 bf16 batch 2", lambda: phase_train_path(torch, smi, entries))
+    run(10, "K5 seeded SGA sweep kernel vs plain version",
+        lambda: entries.append(phase_seeded_fwd(torch, gen, smi)))
+    run(11, "K6 seeded SGA gradient-sweep kernel vs plain version",
+        lambda: entries.append(phase_seeded_bwd(torch, gen, smi)))
+    run(12, f"sharded SGA wavefront and halo LGA on {SHARDS} ranks sharing the card",
+        lambda: phase_sharded(torch, smi, entries))
+    run(13, "K7 channel-wise LGA kernel and the lga3d path",
+        lambda: entries.append(phase_lga3d(torch, gen, smi)))
+    run(14, "the from-files path: predict, evaluate and bench", lambda: phase_from_files(torch, gen, smi))
+    run(15, "training from files: train, resume, left_right, predict, remat",
+        lambda: phase_train_from_files(torch, gen, smi))
+    run(16, f"data-parallel training on {DP_RANKS} ranks sharing the card",
+        lambda: phase_data_parallel(torch, gen, smi))
+    run(17, f"H-sharded inference on {SP_RANKS} ranks sharing the card, and the predict CLI on meshes",
+        lambda: phase_spatial(torch, gen, smi, entries))
+    run(18, f"H-sharded training on {ST_RANKS} ranks sharing the card, the train CLI with "
+        "--mesh_space and the dryrun", lambda: phase_spatial_train(torch, gen, smi, entries))
+    run(19, f"disparity-sharded inference and training on {DS_RANKS} ranks sharing the card, the "
+        "train CLI with --mesh_disp and the dryrun of 8", lambda: phase_disp(torch, gen, smi))
+    run(20, f"channel tensor parallelism on {CT_RANKS} ranks sharing the card and the train CLI "
+        "with --channel_tp 1", lambda: phase_channel_tp(torch, gen, smi))
+    run(21, "the native decoder and feeding the step", lambda: phase_native_io(torch, smi))
+    run(22, "the training benchmarks: bench_train, profile_train, bench_scaling",
+        lambda: phase_train_bench(torch, smi))
+    run(23, "the eval-forward profilers: bench_conv3d, profile_head, profile_breakdown, profile_agg",
+        lambda: phase_eval_profilers(torch, gen, smi, state["main_path"]))
+    run(24, f"the SGA kernels past D = 256, GANet_deep at max_disp {WIDE_MAX_DISP}, GANet11 and KITTI "
+        "2015 from files, bench_wavefront --impl pallas", lambda: phase_wide(torch, gen, smi))
+    log("seconds a phase: " + ", ".join(f"{n} {t:.1f}" for n, t in sorted(seconds.items())))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if only:
         return 0

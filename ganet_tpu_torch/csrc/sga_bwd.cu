@@ -58,22 +58,28 @@
 //    at the step that makes dx and rounded once.
 //  * Sweeps along H (l = h): A' is the A row at l -+ 1, as aligned as x.
 //    G and B as in sga_fwd.cu (2 lanes x 32 bins at D = 64, 16 columns a
-//    warp: 32-byte bf16 rows; 8 x 32 at D = 256, 8-byte bf16 rows); a stage
-//    is one step of x, A', gbar, the old dx when accumulating and the 5
-//    weight rows, copied and stored 16 bytes (or a whole 8-byte row) at a
-//    time; dx goes over the consumed gbar (only the lane that
+//    warp: 32-byte bf16 rows; 8 x 32 at D = 256, 8-byte bf16 rows; 16 x 32
+//    at D = 512, rows of 8 bytes in f32 and 4 in bf16); a stage is one step
+//    of x, A', gbar, the old dx when accumulating and the 5 weight rows,
+//    copied and stored 16 bytes (or a whole shorter row) at a time; dx
+//    goes over the consumed gbar (only the lane that
 //    owns a bin reads or writes it), dw into 5 rows of its own (every lane
 //    of a column reads the weights); 2 steps in the ring storing, 4
 //    accumulating.
 //  * Sweeps along W (l = w): one column a warp, bins over the 32 lanes
-//    (B = 1, 2, 4 or 8, bin row (d % B) * 32 + d / B).  A stage holds a run
-//    of 128 bytes (64 bf16 or 32 f32 steps) of every row of x and A' and
-//    of the 5 weight rows, at a pitch of 132 bytes (33 words, odd: the
+//    (B = 1, 2, 4, 8 or 16, bin row (d % B) * 32 + d / B).  A stage holds a
+//    run of 128 bytes (64 bf16 or 32 f32 steps) of every row of x and A'
+//    and of the 5 weight rows, at a pitch of 132 bytes (33 words, odd: the
 //    lanes' reads down the rows hit 32 banks), copied 4 bytes a lane, 2
-//    stages; dx goes out over the consumed x.  gbar and the old dx are not
-//    staged: each of their rows is read by the one lane that owns its bin,
+//    stages; at B = 16 (D up to 512) a run of 64 bytes at a pitch of 68
+//    (17 words), since 128-byte runs of 1,034 rows would take 272,976 bytes
+//    of shared memory for the 2 stages, more than a block's 232,448, and
+//    64-byte runs take 140,624.  dx goes out over the consumed x.  gbar
+//    and the old dx are not staged: each of their rows is read by the one
+//    lane that owns its bin,
 //    so that lane loads its own bins' rows straight into registers, 8
-//    steps at a time (4 at B = 4, 2 at B = 8), by 16-byte loads where the
+//    steps at a time (4 at B = 4, 2 at B = 8, a word at B = 16), by 16-byte
+//    loads where the
 //    rows allow, one chunk ahead of use; at B = 8 the old dx is read at its
 //    use instead (with it in registers too, the build spilled in bf16).  A stage so holds two volumes for both
 //    launches, where staging every input took three storing and four
@@ -127,18 +133,28 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCopy = 16;  // bytes of one copy along H, at most
 
 // Bytes of one copy along H: 16, or a whole row of the 32/G columns a warp
-// owns where that is less (8 bytes in bf16 at G = 8).
+// owns where that is less (8 bytes in bf16 at G = 8; 8 in f32 and 4 in
+// bf16 at G = 16).
 template <typename T, int G>
 __host__ __device__ constexpr int copy_bytes_h() {
   return (32 / G) * (int)sizeof(T) < kCopy ? (32 / G) * (int)sizeof(T) : kCopy;
 }
 
+// One copy's bytes as a type, for the stores of a copy's width.
+template <int CB>
+using CopyVec = std::conditional_t<CB == 16, uint4, std::conditional_t<CB == 8, uint2, uint32_t>>;
+
 // Steps in a warp's ring along H, for a storing launch and for an
-// accumulating one; stages in a warp's ring and bytes of a row a stage
-// holds along W (see "Measured" in the header).
+// accumulating one; stages in a warp's ring along W, and the bytes of a row
+// a stage holds along W at B bins a lane: 128, but 64 at B = 16 (D up to
+// 512), where 128-byte runs would take 272,976 bytes of shared memory, more
+// than a block has (see "Measured" in the header).
 constexpr int kStagesH[2] = {2, 4};
 constexpr int kStagesW = 2;
-constexpr int kRunW = 128;
+template <int B>
+__host__ __device__ constexpr int run_w() {
+  return B >= 16 ? 64 : 128;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -148,7 +164,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// An asynchronous copy of BYTES (16 or 8) from global to shared memory.
+// An asynchronous copy of BYTES (16, 8 or 4) from global to shared memory.
 template <int BYTES>
 __device__ __forceinline__ void cp_async_h(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -329,16 +345,17 @@ __device__ __forceinline__ void grad_step(float (&c)[B], int g, int lane, int D,
 // the old dx (bin d at row (d % B) * G + d / B of its volume), then the 5
 // weight rows and the 5 dw rows.
 template <typename T, int G, int B, int STAGES>
-__global__ void __launch_bounds__(32)
-sga_bwd_h_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ a,
-                 const T* __restrict__ gbar, T* __restrict__ dx, T* __restrict__ dw, int N, int D,
-                 int H, int W, long long w_nstride, int reverse, int accumulate, int vec) {
+__device__ __forceinline__ void sga_bwd_h(const T* __restrict__ x, const T* __restrict__ w,
+                                          const T* __restrict__ a, const T* __restrict__ gbar,
+                                          T* __restrict__ dx, T* __restrict__ dw, int N, int D,
+                                          int H, int W, long long w_nstride, int reverse,
+                                          int accumulate, int vec) {
   constexpr int TM = 32 / G;               // columns a warp owns
   constexpr int DP = G * B;                // bin rows of a volume
   constexpr int CB = copy_bytes_h<T, G>(); // bytes of one copy
   constexpr int EPC = CB / sizeof(T);      // elements of one copy
   static_assert(TM % EPC == 0, "a row is whole copies");
-  using Vec = std::conditional_t<CB == 16, uint4, uint2>;  // one copy's bytes
+  using Vec = CopyVec<CB>;                 // one copy's bytes
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tiles = (W + TM - 1) / TM;
@@ -448,6 +465,25 @@ sga_bwd_h_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
   cp_async_wait<0>();
 }
 
+// The sweep along H as a kernel.  At 16 lanes a column (D up to 512) a
+// block count of one lets ptxas take more than the 128 registers it held
+// the kernel to without one, where it spilled 12 bytes in bf16 (an H100
+// build, PR 25); the kernels of fewer lanes keep their bounds.
+#define SGA_BWD_H_ARGS                                                                            \
+  const T *__restrict__ x, const T *__restrict__ w, const T *__restrict__ a,                      \
+      const T *__restrict__ gbar, T *__restrict__ dx, T *__restrict__ dw, int N, int D, int H,    \
+      int W, long long w_nstride, int reverse, int accumulate, int vec
+template <typename T, int G, int B, int STAGES>
+__global__ void __launch_bounds__(32) sga_bwd_h_kernel(SGA_BWD_H_ARGS) {
+  sga_bwd_h<T, G, B, STAGES>(x, w, a, gbar, dx, dw, N, D, H, W, w_nstride, reverse, accumulate, vec);
+}
+template <typename T, int B, int STAGES>
+__global__ void __launch_bounds__(32, 1) sga_bwd_h16_kernel(SGA_BWD_H_ARGS) {
+  sga_bwd_h<T, 16, B, STAGES>(x, w, a, gbar, dx, dw, N, D, H, W, w_nstride, reverse, accumulate,
+                              vec);
+}
+#undef SGA_BWD_H_ARGS
+
 // Element k of a run of T packed in 4-byte words, as f32.
 template <typename T, int CW>
 __device__ __forceinline__ float unpack(const uint32_t (&r)[CW], int k) {
@@ -507,7 +543,9 @@ sga_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __re
   constexpr int EPU = 4 / sizeof(T);  // elements of a unit
   constexpr int P = S + EPU;          // row pitch, elements: U + 1 words
   constexpr int DP = 32 * B;          // bin rows of a volume
-  constexpr int CH = B >= 8 ? 2 : B == 4 ? 4 : 8;  // steps of a chunk held in registers
+  // Steps of a chunk held in registers: at B = 16 one word a bin (one f32
+  // step, two bf16), where two f32 steps spilled (8 bytes, 255 registers).
+  constexpr int CH = B >= 16 ? 4 / (int)sizeof(T) : B >= 8 ? 2 : B == 4 ? 4 : 8;
   constexpr int CW = CH * sizeof(T) / 4;  // words of a chunk of a row
   static_assert(U <= 32 && 32 % U == 0, "a warp copies whole rows");
   static_assert(S % CH == 0, "a stage is whole chunks");
@@ -703,19 +741,21 @@ bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) %
 
 // G lanes a column, B bins a lane: along H as in sga_fwd.cu, along W a warp
 // a column.
-#define SGA_BWD_BY_D_H(CALL)        \
-  if (D <= 8) return CALL(1, 8);    \
-  if (D <= 16) return CALL(2, 8);   \
-  if (D <= 32) return CALL(2, 16);  \
-  if (D <= 64) return CALL(2, 32);  \
-  if (D <= 128) return CALL(4, 32); \
-  if (D <= 256) return CALL(8, 32); \
+#define SGA_BWD_BY_D_H(CALL)         \
+  if (D <= 8) return CALL(1, 8);     \
+  if (D <= 16) return CALL(2, 8);    \
+  if (D <= 32) return CALL(2, 16);   \
+  if (D <= 64) return CALL(2, 32);   \
+  if (D <= 128) return CALL(4, 32);  \
+  if (D <= 256) return CALL(8, 32);  \
+  if (D <= 512) return CALL(16, 32); \
   return cudaErrorInvalidValue;
-#define SGA_BWD_BY_D_W(CALL)        \
-  if (D <= 32) return CALL(32, 1);  \
-  if (D <= 64) return CALL(32, 2);  \
-  if (D <= 128) return CALL(32, 4); \
-  if (D <= 256) return CALL(32, 8); \
+#define SGA_BWD_BY_D_W(CALL)         \
+  if (D <= 32) return CALL(32, 1);   \
+  if (D <= 64) return CALL(32, 2);   \
+  if (D <= 128) return CALL(32, 4);  \
+  if (D <= 256) return CALL(32, 8);  \
+  if (D <= 512) return CALL(32, 16); \
   return cudaErrorInvalidValue;
 
 template <typename T, bool AW, int G, int B>
@@ -734,9 +774,9 @@ Plan plan(const void* const (&ptrs)[6], int N, int D, int H, int W, int accumula
   // their rows allow.
   p.wide = p.vec && (W * elem) % 16 == 0 && aligned(ptrs[3], 16) && aligned(ptrs[4], 16);
   if (AW) {
-    p.steps = kRunW / elem;
+    p.steps = run_w<B>() / elem;
     p.stages = kStagesW;
-    p.smem = (size_t)kStagesW * (2 * G * B + 10) * (kRunW + 4);
+    p.smem = (size_t)kStagesW * (2 * G * B + 10) * (run_w<B>() + 4);
     p.blocks = N * H;
   } else {
     const int TM = 32 / G;
@@ -752,7 +792,9 @@ Plan plan(const void* const (&ptrs)[6], int N, int D, int H, int W, int accumula
 template <typename T, bool AW, int G, int B, int ACC>
 const void* kernel_of() {
   if constexpr (AW)
-    return reinterpret_cast<const void*>(sga_bwd_w_kernel<T, B, kRunW, kStagesW, ACC == 1>);
+    return reinterpret_cast<const void*>(sga_bwd_w_kernel<T, B, run_w<B>(), kStagesW, ACC == 1>);
+  else if constexpr (G == 16)
+    return reinterpret_cast<const void*>(sga_bwd_h16_kernel<T, B, kStagesH[ACC]>);
   else
     return reinterpret_cast<const void*>(sga_bwd_h_kernel<T, G, B, kStagesH[ACC]>);
 }
@@ -765,8 +807,11 @@ cudaError_t launch_as(const Plan& p, const T* x, const T* w, const T* a, const T
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
   if constexpr (AW)
-    sga_bwd_w_kernel<T, B, kRunW, kStagesW, ACC == 1><<<p.blocks, 32, p.smem, stream>>>(
+    sga_bwd_w_kernel<T, B, run_w<B>(), kStagesW, ACC == 1><<<p.blocks, 32, p.smem, stream>>>(
         x, w, a, gbar, dx, dw, N, D, H, W, w_nstride, reverse, p.vec, p.wide);
+  else if constexpr (G == 16)
+    sga_bwd_h16_kernel<T, B, kStagesH[ACC]><<<p.blocks, 32, p.smem, stream>>>(
+        x, w, a, gbar, dx, dw, N, D, H, W, w_nstride, reverse, ACC, p.vec);
   else
     sga_bwd_h_kernel<T, G, B, kStagesH[ACC]><<<p.blocks, 32, p.smem, stream>>>(
         x, w, a, gbar, dx, dw, N, D, H, W, w_nstride, reverse, ACC, p.vec);
@@ -841,8 +886,8 @@ cudaError_t dispatch_describe(const void* const (&ptrs)[6], int N, int D, int H,
 
 extern "C" {
 
-// Largest D one launch takes (8 lanes x 32 bins along H, 32 x 8 along W).
-int sga_sweep_bwd_max_d() { return 256; }
+// Largest D one launch takes (16 lanes x 32 bins along H, 32 x 16 along W).
+int sga_sweep_bwd_max_d() { return 512; }
 
 // x, a (the forward's output), gbar, dx: (N, D, H, W); w, dw: this
 // direction's (N, 5, H, W) weights and their gradient with a stride of

@@ -53,9 +53,11 @@
 //    needs no second read of A'.
 //  * Layout: K3's ladder along H, G x B = 1 x 8, 2 x 8, 2 x 16, 2 x 32 (D
 //    <= 64: 16 columns a warp, 32-byte bf16 rows), 4 x 32, 8 x 32 (D <=
-//    256: 8-byte bf16 rows).  A block is 4 warps on adjacent column tiles
-//    of one n (fewer for a window of fewer tiles): at the tail chunk's
-//    shape 512 warps in 128 blocks, one an SM.
+//    256: 8-byte bf16 rows), 16 x 32 (D <= 512: rows of 8 bytes in f32, 4
+//    in bf16).  A block is 4 warps on adjacent column tiles of one n
+//    (fewer for a window of fewer tiles): at the tail chunk's shape 512
+//    warps in 128 blocks, one an SM.  At 16 x 32 a warp's ring of 3 steps
+//    is 49,392 bytes in f32, 197,568 for a block's 4 warps.
 //  * Each warp stages its own steps into its own ring of shared memory by
 //    asynchronous copies ahead of use and waits on them with
 //    `cp.async.wait_group` plus `__syncwarp`: warps never wait on each
@@ -70,8 +72,8 @@
 //  * `__launch_bounds__(128, 1)`: without the block count ptxas held some
 //    instantiations at 128 registers and spilled 4-8 bytes; with it they
 //    take 78-160 registers and none spills.
-//  * Alignment: vectorised staging (16-byte copies, or a whole 8-byte row
-//    in bf16 at G = 8) where x, A, gbar, dx, w, dw and the seed, W, the
+//  * Alignment: vectorised staging (16-byte copies, or a whole shorter row
+//    as above) where x, A, gbar, dx, w, dw and the seed, W, the
 //    weights' n stride, col0 and cols allow, as at every shape of the
 //    wavefront; element-wise (`ld.global` -> `st.shared`, element stores)
 //    otherwise.
@@ -113,10 +115,21 @@ constexpr int kWarps = 4;           // warps a block, on adjacent column tiles
 constexpr int kStages = 3;          // steps in a warp's ring
 
 // Bytes of one copy: 16, or a whole row of the 32/G columns a warp owns
-// where that is less (8 bytes in bf16 at G = 8).
+// where that is less (8 bytes in bf16 at G = 8; 8 in f32 and 4 in bf16 at
+// G = 16).
 template <typename T, int G>
 __host__ __device__ constexpr int copy_bytes() {
   return (32 / G) * (int)sizeof(T) < kCopy ? (32 / G) * (int)sizeof(T) : kCopy;
+}
+
+// One copy's bytes as a type, for the stores of a copy's width.
+template <int CB>
+using CopyVec = std::conditional_t<CB == 16, uint4, std::conditional_t<CB == 8, uint2, uint32_t>>;
+
+// Sums a lane of a column holds after `group_sum5`: 8 slots over G lanes.
+template <int G>
+__host__ __device__ constexpr int slots_a_lane() {
+  return G >= 8 ? 1 : 8 / G;
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -128,8 +141,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // An asynchronous copy of BYTES from global to shared memory: 16 bytes
-// by `.cg` (L2 only; `.ca` lost, see the header), 8 by `.ca`, the one
-// kind that copies 8.
+// by `.cg` (L2 only; `.ca` lost, see the header), 8 or 4 by `.ca`, the
+// one kind that copies fewer than 16.
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -160,14 +173,17 @@ struct LaneMax {
   }
 };
 
-// The sums over a column's G lanes (G = 1, 2, 4 or 8) of v0..v4,
+// The sums over a column's G lanes (G = 1, 2, 4, 8 or 16) of v0..v4,
 // reduce-scattered: lane g of the column returns in r[j] the sum of slot
-// g + j G (slots 0..4 are v0..v4, slots 5..7 are empty).  Offsets 1, 2, 4
-// each halve the slots a lane holds: 3, 2 and 1 shuffles.
+// g + j G (slots 0..4 are v0..v4, slots 5..7 are empty); at G = 16 lanes g
+// and g + 8 both hold slot g.  Offsets 1, 2, 4 each halve the slots a lane
+// holds: 3, 2 and 1 shuffles; offset 8 adds the two halves of a 16-lane
+// column.
 template <int G>
 __device__ __forceinline__ void group_sum5(float v0, float v1, float v2, float v3, float v4,
-                                           int g, float (&r)[8 / G]) {
-  static_assert(G == 1 || G == 2 || G == 4 || G == 8, "a column is 1, 2, 4 or 8 lanes");
+                                           int g, float (&r)[slots_a_lane<G>()]) {
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8 || G == 16,
+                "a column is 1, 2, 4, 8 or 16 lanes");
   if constexpr (G == 1) {
     r[0] = v0, r[1] = v1, r[2] = v2, r[3] = v3, r[4] = v4, r[5] = r[6] = r[7] = 0.f;
   } else {
@@ -187,6 +203,7 @@ __device__ __forceinline__ void group_sum5(float v0, float v1, float v2, float v
       } else {
         const bool b2 = g & 4;
         r[0] = (b2 ? q1 : q0) + __shfl_xor_sync(kFull, b2 ? q0 : q1, 4);
+        if constexpr (G == 16) r[0] += __shfl_xor_sync(kFull, r[0], 8);
       }
     }
   }
@@ -241,7 +258,7 @@ __device__ __forceinline__ void grad_step(float (&c)[B], int g, int D, bool copy
     if (dlo + B < D) s3 += c[B - 1] * an(dlo + B);
   }
   // The column's sums, reduce-scattered, and its (max, tie count) of A'.
-  float r[8 / G];
+  float r[slots_a_lane<G>()];
   group_sum5<G>(s0, s1, s2, s3, sg, g, r);
   float M = m.lm;
   unsigned cnt = m.lc;
@@ -260,7 +277,7 @@ __device__ __forceinline__ void grad_step(float (&c)[B], int g, int D, bool copy
   else
     SG = __shfl_sync(kFull, r[4 / G], 4 % G, G);
 #pragma unroll
-  for (int j = 0; j < 8 / G; ++j) {
+  for (int j = 0; j < slots_a_lane<G>(); ++j) {
     const int k = g + j * G;
     if (k < 5) add_dw(k, k == 4 ? r[j] * M : r[j]);
   }
@@ -309,8 +326,8 @@ sga_bwd_seeded_kernel(const T* __restrict__ x, const T* __restrict__ w, const T*
   constexpr int EPC = CB / sizeof(T);       // elements of one copy
   constexpr int PROW = 4 * DP;              // first plane row of a stage
   constexpr int STAGE = (PROW + 10) * TM;   // elements of a stage
-  static_assert(TM % EPC == 0 && (CB == 16 || CB == 8), "a row is whole copies");
-  using Vec = std::conditional_t<CB == 16, uint4, uint2>;  // one copy's bytes
+  static_assert(TM % EPC == 0 && (CB == 16 || CB == 8 || CB == 4), "a row is whole copies");
+  using Vec = CopyVec<CB>;                  // one copy's bytes
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int warps = blockDim.x / 32, wib = threadIdx.x / 32;
@@ -456,13 +473,14 @@ struct Plan {
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 // G lanes a column, B bins a lane: K3's ladder along H.
-#define SGA_BWD_SEEDED_BY_D(CALL)   \
-  if (D <= 8) return CALL(1, 8);    \
-  if (D <= 16) return CALL(2, 8);   \
-  if (D <= 32) return CALL(2, 16);  \
-  if (D <= 64) return CALL(2, 32);  \
-  if (D <= 128) return CALL(4, 32); \
-  if (D <= 256) return CALL(8, 32); \
+#define SGA_BWD_SEEDED_BY_D(CALL)    \
+  if (D <= 8) return CALL(1, 8);     \
+  if (D <= 16) return CALL(2, 8);    \
+  if (D <= 32) return CALL(2, 16);   \
+  if (D <= 64) return CALL(2, 32);   \
+  if (D <= 128) return CALL(4, 32);  \
+  if (D <= 256) return CALL(8, 32);  \
+  if (D <= 512) return CALL(16, 32); \
   return cudaErrorInvalidValue;
 
 // ptrs: x, w, a, gbar, dx, dw, seed (null without `valid`).
@@ -577,8 +595,8 @@ cudaError_t dispatch_describe(const void* const (&ptrs)[7], int N, int D, int H,
 
 extern "C" {
 
-// Largest D one launch takes (8 lanes x 32 bins a column).
-int sga_sweep_bwd_seeded_max_d() { return 256; }
+// Largest D one launch takes (16 lanes x 32 bins a column).
+int sga_sweep_bwd_seeded_max_d() { return 512; }
 
 // x, a (K5's output), gbar, dx: (N, D, H, W), the window [col0, col0 + cols)
 // of each row; w, dw: this direction's (N, 5, H, W) weights and their

@@ -41,11 +41,13 @@
 //    Results are written over the consumed x of the stage and leave it as
 //    whole rows of memory.
 //  * Sweeps along H (l = h): a column group is G lanes, at most 16 bins a
-//    lane up to D = 32 and 32 above (2 x 32 at D = 64, 8 x 32 at D = 256),
-//    and a warp owns 32/G columns adjacent along W, so a stage is one step:
-//    D rows of x (and D of running max) plus 5 weight rows of 32/G
-//    contiguous elements (32 bytes in bf16 at D = 64), copied 16 bytes at a
-//    time (8 where a row is 8 bytes: bf16 at G = 8).  4 stages, 3
+//    lane up to D = 32 and 32 above (2 x 32 at D = 64, 8 x 32 at D = 256,
+//    16 x 32 at D = 512), and a warp owns 32/G columns adjacent along W, so
+//    a stage is one step: D rows of x (and D of running max) plus 5 weight
+//    rows of 32/G contiguous elements (32 bytes in bf16 at D = 64), copied
+//    16 bytes at a time (8 where a row is 8 bytes: bf16 at G = 8; at G =
+//    16 a row is 8 bytes in f32 and 4 in bf16, the least `cp.async`
+//    copies, so 32 lanes a column would not stage by copies).  4 stages, 3
 //    steps in flight; 2 warps a block.  Rows of bin d sit at
 //    (d % B) * G + d / B so the lanes of a warp read one contiguous span;
 //    outputs go back as stores of one copy's width.  Measured on an H100 80GB HBM3 at
@@ -58,7 +60,8 @@
 //    runs, 8 columns a warp, the full-res f32 W sweep took 3.35 ms a
 //    storing launch, chip_smoke.py phase 2 on the same card.)  Shared
 //    memory then holds few columns, so one column a warp: its D bins over
-//    all 32 lanes (B = 1, 2 or 4 a lane, d = g*B + i), the max over d one
+//    all 32 lanes (B = 1, 2, 4, 8 or 16 a lane, d = g*B + i; at B = 16, D
+//    up to 512, a stage holds 64 bytes of each row, `run_w`), the max over d one
 //    `redux.sync` on an order-preserving integer image of the floats.  A
 //    stage at D = 64 is (64 + 5) rows x 132 bytes, 2 stages (one in
 //    flight), 9 KB a warp.  Rows are copied by 4-byte `cp.async`, one
@@ -104,7 +107,18 @@ constexpr int kWarpsH = 2;    // warps per block, sweeps along H
 constexpr int kStagesH = 4;   // steps in a warp's ring, sweeps along H
 constexpr int kWarpsW = 1;    // warps per block, sweeps along W
 constexpr int kStagesW = 2;   // stages in a warp's ring, sweeps along W
-constexpr int kRunW = 128;    // bytes of a row a W-sweep stage holds
+// Bytes of a row a W-sweep stage holds at B bins a lane: 128, but 64 at
+// B = 16 (D up to 512), where 128-byte runs take 136,488 bytes of shared
+// memory a block, one block (one warp) an SM, and 64-byte runs 70,312,
+// three.  Measured on an H100 80GB HBM3 at 700 W (in turns in one call,
+// W sweep at (32, 512, 192, 320), ms a storing / accumulating launch):
+// 64-byte runs 7.93-8.00 / 22.91-22.98 in bf16, 18.12-18.21 / 43.33-43.43
+// in f32; 128-byte runs 26.05-26.06 / 62.13-62.15 and 42.62-42.68 /
+// 114.56-114.58, with 40 bytes of local memory in f32.
+template <int B>
+__host__ __device__ constexpr int run_w() {
+  return B >= 16 ? 64 : 128;
+}
 
 // Sweep along H.  A warp's ring holds kStagesH steps, each (in elements of
 // T) DP rows of x, DP rows of running max when accumulating, then 5 weight
@@ -119,7 +133,7 @@ sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
   constexpr int EPC = CB / sizeof(T);    // elements of one copy
   constexpr int CPR = TM / EPC;          // copies per row
   static_assert(CPR >= 1 && TM % EPC == 0, "a row is whole copies");
-  using Vec = std::conditional_t<CB == 16, uint4, uint2>;  // one copy's bytes
+  using Vec = CopyVec<CB>;               // one copy's bytes
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tiles = (W + TM - 1) / TM;
@@ -210,8 +224,9 @@ sga_sweep_h_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
 }
 
 // Sweep along W: one column (n, h) a warp, bin d = g*B + i on lane g.  A
-// warp's ring holds kStagesW stages of S = kRunW / elem steps; a stage is
-// rows of S elements at a pitch of kRunW + 4 bytes: 32*B rows of x (bin d
+// warp's ring holds kStagesW stages of S = RUN / elem steps (RUN =
+// run_w<B>()); a stage is rows of S elements at a pitch of RUN + 4 bytes
+// (an odd number of words): 32*B rows of x (bin d
 // at row (d % B) * 32 + d / B), then 5 weight rows.  When accumulating,
 // the running max of a stage is loaded into registers (KU 4-byte units a
 // lane) while the stage is computed, and taken at the store; above 4 bins a
@@ -220,10 +235,11 @@ template <typename T, int B>
 __global__ void __launch_bounds__(32 * kWarpsW)
 sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int N,
                    int D, int H, int W, long long w_nstride, int reverse, int accumulate, int vec) {
-  constexpr int S = kRunW / sizeof(T);       // steps of a stage
-  constexpr int U = kRunW / 4;               // 4-byte units of a row
+  constexpr int RUN = run_w<B>();            // bytes of a row a stage holds
+  constexpr int S = RUN / sizeof(T);         // steps of a stage
+  constexpr int U = RUN / 4;                 // 4-byte units of a row
   constexpr int EPU = 4 / sizeof(T);         // elements of a unit
-  constexpr int P = (kRunW + 4) / sizeof(T); // row pitch, elements
+  constexpr int P = (RUN + 4) / sizeof(T);   // row pitch, elements
   constexpr int DP = 32 * B;                 // bin rows a stage holds
   constexpr int KU = B * U;                  // units of a stage's rows a lane stores
   constexpr bool HOLD = KU <= 128;           // the running max held in registers
@@ -345,19 +361,21 @@ sga_sweep_w_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
 
 // G lanes a column, B bins a lane.  Along H: rows of at least 32 bytes in
 // bf16 up to D = 64.  Along W: a warp a column.
-#define SGA_BY_D_H(CALL)            \
-  if (D <= 8) return CALL(1, 8);    \
-  if (D <= 16) return CALL(2, 8);   \
-  if (D <= 32) return CALL(2, 16);  \
-  if (D <= 64) return CALL(2, 32);  \
-  if (D <= 128) return CALL(4, 32); \
-  if (D <= 256) return CALL(8, 32); \
+#define SGA_BY_D_H(CALL)             \
+  if (D <= 8) return CALL(1, 8);     \
+  if (D <= 16) return CALL(2, 8);    \
+  if (D <= 32) return CALL(2, 16);   \
+  if (D <= 64) return CALL(2, 32);   \
+  if (D <= 128) return CALL(4, 32);  \
+  if (D <= 256) return CALL(8, 32);  \
+  if (D <= 512) return CALL(16, 32); \
   return cudaErrorInvalidValue;
-#define SGA_BY_D_W(CALL)            \
-  if (D <= 32) return CALL(32, 1);  \
-  if (D <= 64) return CALL(32, 2);  \
-  if (D <= 128) return CALL(32, 4); \
-  if (D <= 256) return CALL(32, 8); \
+#define SGA_BY_D_W(CALL)             \
+  if (D <= 32) return CALL(32, 1);   \
+  if (D <= 64) return CALL(32, 2);   \
+  if (D <= 128) return CALL(32, 4);  \
+  if (D <= 256) return CALL(32, 8);  \
+  if (D <= 512) return CALL(32, 16); \
   return cudaErrorInvalidValue;
 
 template <typename T, int G, int B>
@@ -370,10 +388,10 @@ Plan plan(const void* x, const void* w, const void* out, int N, int D, int H, in
     const int elem = sizeof(T);
     p.vec = aligned(x, 4) && aligned(w, 4) && aligned(out, 4) && (W * elem) % 4 == 0 &&
             (w_nstride * elem) % 4 == 0;
-    p.steps = kRunW / elem;
+    p.steps = run_w<B>() / elem;
     p.stages = kStagesW;
     p.warps_per_block = kWarpsW;
-    p.smem = (size_t)kWarpsW * kStagesW * (32 * B + 5) * (kRunW + 4);
+    p.smem = (size_t)kWarpsW * kStagesW * (32 * B + 5) * (run_w<B>() + 4);
     p.blocks = (int)(((long long)N * H + kWarpsW - 1) / kWarpsW);
   } else {
     const int TM = 32 / G, cb = copy_bytes_h<T, G>();
@@ -458,8 +476,8 @@ cudaError_t dispatch_describe(const void* x, const void* w, const void* out, int
 
 extern "C" {
 
-// Largest D one launch takes (8 lanes x 32 bins along H, 32 x 8 along W).
-int sga_sweep_max_d() { return 256; }
+// Largest D one launch takes (16 lanes x 32 bins along H, 32 x 16 along W).
+int sga_sweep_max_d() { return 512; }
 
 // x, out: (N, D, H, W); w: this direction's (N, 5, H, W) weights with a
 // stride of w_nstride elements between consecutive n.  dtype 0 = float32,

@@ -34,9 +34,11 @@
 //    warp, B bins a lane (lane g owns d in [g B, g B + B)); a warp owns
 //    TM = 32 / G columns of the window adjacent along W, tiles counted from
 //    col0.  K1's ladder: G x B = 1 x 8, 2 x 8, 2 x 16, 2 x 32 (D <= 64),
-//    4 x 32, 8 x 32 (D <= 256); but at D <= 64, where 2 x 32 would give
-//    fewer than 2 warps an SM (kFewWarps), 4 x 16, twice the warps with
-//    half the bins a lane: the eval chunk's 256 warps become 512.
+//    4 x 32, 8 x 32 (D <= 256), 16 x 32 (D <= 512); but at D <= 64, where
+//    2 x 32 would give fewer than 2 warps an SM (kFewWarps), 4 x 16, twice
+//    the warps with half the bins a lane: the eval chunk's 256 warps become
+//    512.  (The rule reads only D <= 64; 16 x 32 has twice the warps of
+//    8 x 32 on the same window.)
 //  * With `valid` the lanes load their bins of the seed into the carry
 //    before the walk (the seed's rows are staged like a step's x) and step
 //    0 is a full step; without it step 0 is K1's copy step.  So over the
@@ -53,11 +55,11 @@
 //    computed but never stored.
 //  * Blocks are sized from the grid: up to kMaxWarps warps a block on
 //    adjacent tiles, as many as keep the blocks at or above kMinBlocks.
-//  * Alignment: vectorised staging (16-byte copies, or a whole 8-byte row
-//    in bf16 at G = 8) where x, w, out, the seed and boundary, W, the
-//    weights' n stride, col0 and cols allow, as at every shape of the
-//    wavefront; element-wise (`ld.global` -> `st.shared`, element stores)
-//    otherwise.
+//  * Alignment: vectorised staging (16-byte copies, or a whole shorter row:
+//    8 bytes in bf16 at G = 8, 8 in f32 and 4 in bf16 at G = 16) where x,
+//    w, out, the seed and boundary, W, the weights' n stride, col0 and cols
+//    allow, as at every shape of the wavefront; element-wise (`ld.global`
+//    -> `st.shared`, element stores) otherwise.
 //  * Measured on an H100 80GB HBM3 at 700 W with chip_smoke.py phase 10 on
 //    edited copies of this source, each time the mean of 20 launches
 //    queued behind a spin kernel; f32 / bf16 ms a launch at the eval chunk
@@ -112,8 +114,8 @@ sga_fwd_seeded_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int CB = copy_bytes_h<T, G>();   // bytes of one copy
   constexpr int EPC = CB / sizeof(T);        // elements of one copy
   constexpr int STAGE = (DP + 5) * TM;       // elements of a stage
-  static_assert(TM % EPC == 0 && (CB == 16 || CB == 8), "a row is whole copies");
-  using Vec = std::conditional_t<CB == 16, uint4, uint2>;  // one copy's bytes
+  static_assert(TM % EPC == 0 && (CB == 16 || CB == 8 || CB == 4), "a row is whole copies");
+  using Vec = CopyVec<CB>;                   // one copy's bytes
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tiles = (cols + TM - 1) / TM;
@@ -222,6 +224,7 @@ sga_fwd_seeded_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                                           : CALL(2, 32); \
   if (D <= 128) return CALL(4, 32);                                    \
   if (D <= 256) return CALL(8, 32);                                    \
+  if (D <= 512) return CALL(16, 32);                                   \
   return cudaErrorInvalidValue;
 
 // ptrs: x, w, out, boundary, seed (null without `valid`; null pointers are
@@ -320,8 +323,8 @@ bool bad_window(int H, int W, int col0, int cols) {
 
 extern "C" {
 
-// Largest D one launch takes (8 lanes x 32 bins a column).
-int sga_sweep_fwd_seeded_max_d() { return 256; }
+// Largest D one launch takes (16 lanes x 32 bins a column).
+int sga_sweep_fwd_seeded_max_d() { return 512; }
 
 // x, out: (N, D, H, W), the window [col0, col0 + cols) of each row; w: this
 // direction's (N, 5, H, W) weights with a stride of w_nstride elements

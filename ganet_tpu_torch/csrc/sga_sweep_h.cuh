@@ -14,17 +14,24 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCopy = 16;     // bytes of one copy along H, at most
 
 // Bytes of one copy along H: 16, or a whole row of the 32/G columns a warp
-// owns where that is less (8 bytes in bf16 at G = 8).
+// owns where that is less (8 bytes in bf16 at G = 8; 8 in f32 and 4 in
+// bf16 at G = 16, the least `cp.async` takes).
 template <typename T, int G>
 __host__ __device__ constexpr int copy_bytes_h() {
   return (32 / G) * (int)sizeof(T) < kCopy ? (32 / G) * (int)sizeof(T) : kCopy;
 }
+
+// One copy's bytes as a type, for the stores of a copy's width.
+template <int CB>
+using CopyVec = std::conditional_t<CB == 16, uint4, std::conditional_t<CB == 8, uint2, uint32_t>>;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -34,7 +41,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// An asynchronous copy of BYTES (16 or 8) from global to shared memory.
+// An asynchronous copy of BYTES (16, 8 or 4) from global to shared memory.
 template <int BYTES>
 __device__ __forceinline__ void cp_async_h(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -18,6 +18,11 @@ def trilinear_upsample(x: torch.Tensor, target_shape: Sequence[int]) -> torch.Te
     )[:, 0]
 
 
+def soft_argmin(cost: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Softmax over the negated cost (the soft-argmin probabilities)."""
+    return torch.softmax(-cost, dim=dim)
+
+
 def disparity_regression(prob: torch.Tensor, max_disp: int) -> torch.Tensor:
     """Expectation over the disparity bins of a (B, D, H, W) volume."""
     if prob.shape[1] != max_disp:

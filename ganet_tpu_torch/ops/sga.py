@@ -51,13 +51,13 @@ from ganet_tpu_torch.ops.normalize import at_least_f32
 # (axis, reverse) of each direction, in the order above.
 DIRECTIONS = (("w", False), ("w", True), ("h", False), ("h", True))
 
-# The largest D that one launch of K1, K3, K5 or K6 takes: 8 lanes x 32
-# bins a column along H, 32 x 8 along W.  It equals `sga_sweep_max_d`,
+# The largest D that one launch of K1, K3, K5 or K6 takes: 16 lanes x 32
+# bins a column along H, 32 x 16 along W.  It equals `sga_sweep_max_d`,
 # `sga_sweep_bwd_max_d`, `sga_sweep_fwd_seeded_max_d` and
 # `sga_sweep_bwd_seeded_max_d` of the kernels' libraries (a `gpu` test holds
 # them to it).  The model's SGA volume has D = max_disp / 3, so it caps
 # max_disp at 3 * SGA_MAX_D on the kernels (`entry.build_model` checks).
-SGA_MAX_D = 256
+SGA_MAX_D = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -505,6 +505,33 @@ def _row(t: torch.Tensor | None, like: torch.Tensor, cols: int, dtype, name: str
                          f"{t.dtype} {tuple(t.shape)}")
 
 
+def sga_sweep_seeded_plain(x, wd, reverse, seed, valid, col0, cols, out):
+    """K5's plain version: the seeded sweep along H of x's columns [col0,
+    col0 + cols) with this direction's weights wd (N, 5, H, W), written into
+    that window of `out`; returns (out, boundary) as
+    `sga_sweep_seeded_kernel` does."""
+    win = slice(col0, col0 + cols)
+    a = sga_sweep_plain(x[..., win], wd[..., win], "h", reverse, seed, valid).to(x.dtype)
+    out[..., win] = a
+    return out, a[:, :, 0 if reverse else -1].contiguous()
+
+
+def sga_sweep_bwd_seeded_plain(x, wd, a, gbar, reverse, seed, valid, col0, cols, dboundary, dx, dwd):
+    """K6's plain version: adds the gradient of the seeded sweep over the
+    window into dx and into dwd (this direction's (N, 5, H, W) slot of dw);
+    returns the seed's cotangent, as `sga_sweep_bwd_seeded_kernel` does."""
+    N, D = x.shape[:2]
+    win = slice(col0, col0 + cols)
+    dxk, dwk, dseed = sga_sweep_bwd_plain(
+        x[..., win], wd[..., win], a[..., win], gbar[..., win], "h", reverse,
+        seed if seed is not None else torch.zeros((N, D, cols), dtype=x.dtype, device=x.device),
+        valid, dboundary,
+    )
+    dx[..., win] += dxk
+    dwd[..., win] += dwk
+    return dseed
+
+
 def _fwd_seeded_lib() -> ctypes.CDLL:
     lib = _build.load("sga_fwd_seeded")
     fn = lib.sga_sweep_fwd_seeded
@@ -555,10 +582,7 @@ def sga_sweep_seeded_kernel(
         raise ValueError("out must match x")
     N, D, H, W = x.shape
     if not x.is_cuda:
-        win = slice(col0, col0 + cols)
-        a = sga_sweep_plain(x[..., win], wd[..., win], "h", reverse, seed, valid).to(x.dtype)
-        out[..., win] = a
-        return out, a[:, :, 0 if reverse else -1].contiguous()
+        return sga_sweep_seeded_plain(x, wd, reverse, seed, valid, col0, cols, out)
     lib = _fwd_seeded_lib()
     if D > lib.sga_sweep_fwd_seeded_max_d():
         raise ValueError(f"seeded sga kernel takes D <= {lib.sga_sweep_fwd_seeded_max_d()}, got {D}")
@@ -645,14 +669,8 @@ def sga_sweep_bwd_seeded_kernel(
         raise ValueError("dw must match w")
     N, D, H, W = x.shape
     if not x.is_cuda:
-        win = slice(col0, col0 + cols)
-        dxk, dwk, dseed = sga_sweep_bwd_plain(
-            x[..., win], wd[..., win], a[..., win], gbar[..., win], "h", reverse,
-            seed if seed is not None else torch.zeros((N, D, cols), dtype=x.dtype),
-            valid, dboundary,
-        )
-        dx[..., win] += dxk
-        (dw if direction is None else dw[:, direction])[..., win] += dwk
+        dseed = sga_sweep_bwd_seeded_plain(x, wd, a, gbar, reverse, seed, valid, col0, cols,
+                                           dboundary, dx, dw if direction is None else dw[:, direction])
         return dx, dw, dseed
     lib = _bwd_seeded_lib()
     if D > lib.sga_sweep_bwd_seeded_max_d():

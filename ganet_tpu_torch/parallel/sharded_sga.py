@@ -41,6 +41,7 @@ import logging
 
 import torch
 
+from ganet_tpu_torch.config import IMPLS
 from ganet_tpu_torch.ops import sga as _sga
 from ganet_tpu_torch.parallel import comm
 
@@ -121,13 +122,13 @@ class _ShardedSGA(torch.autograd.Function):
     """x (N, D, Hl, W), w (N, 4, 5, Hl, W): this rank's block."""
 
     @staticmethod
-    def forward(ctx, x, w, group, chunks: int):
+    def forward(ctx, x, w, group, chunks: int, plain: bool):
         idx, S = comm.group_rank(group)
         N, D, Hl, W = x.shape
         Wc, starts = chunk_layout(W, chunks)
         n = len(starts)
-        a = [_sga.sga_sweep_kernel(x, w, axis, reverse, direction=k) if x.is_cuda
-             else _sga.sga_sweep_plain(x, w[:, k], axis, reverse).to(x.dtype)
+        a = [_sga.sga_sweep_plain(x, w[:, k], axis, reverse).to(x.dtype) if plain
+             else _sga.sga_sweep_kernel(x, w, axis, reverse, direction=k)
              for k, (axis, reverse) in enumerate(_sga.DIRECTIONS[:2])]
         waves = _waves(S, idx)
         outs = [torch.empty_like(x) for _ in waves]
@@ -139,10 +140,15 @@ class _ShardedSGA(torch.autograd.Function):
                 c = wave.chunk(t, n)
                 if c is not None:
                     valid = wave.stage > 0
-                    _, boundary = _sga.sga_sweep_seeded_kernel(
-                        x, w, wave.reverse, incoming[k], valid, direction=wave.direction,
-                        col0=starts[c], cols=Wc, out=outs[k],
-                    )
+                    if plain:
+                        _, boundary = _sga.sga_sweep_seeded_plain(
+                            x, w[:, wave.direction], wave.reverse, incoming[k], valid,
+                            starts[c], Wc, outs[k])
+                    else:
+                        _, boundary = _sga.sga_sweep_seeded_kernel(
+                            x, w, wave.reverse, incoming[k], valid, direction=wave.direction,
+                            col0=starts[c], cols=Wc, out=outs[k],
+                        )
                     if valid:
                         seeds[k][c] = incoming[k]
                     if wave.stage < wave.last_stage:
@@ -153,7 +159,7 @@ class _ShardedSGA(torch.autograd.Function):
             comm.exchange(sends, recvs, group)
             incoming = nxt
         a += outs
-        ctx.group, ctx.chunks, ctx.seeds = group, chunks, seeds
+        ctx.group, ctx.chunks, ctx.seeds, ctx.plain = group, chunks, seeds, plain
         ctx.save_for_backward(x, w, *a)
         return _sga.max_tree(a)
 
@@ -168,7 +174,7 @@ class _ShardedSGA(torch.autograd.Function):
         gs = _sga.max_tree_bwd(a, g.contiguous())
         dx, dw = None, torch.zeros_like(w)
         for k, (axis, reverse) in enumerate(_sga.DIRECTIONS[:2]):
-            if x.is_cuda:
+            if not ctx.plain:
                 dx, _ = _sga.sga_sweep_bwd_kernel(
                     x, w, a[k], gs[k], axis, reverse, direction=k, dx=dx, dw=dw)
             else:
@@ -184,11 +190,17 @@ class _ShardedSGA(torch.autograd.Function):
                 c = wave.chunk(t, n)
                 if c is not None:
                     valid = wave.stage > 0
-                    _, _, dseed = _sga.sga_sweep_bwd_seeded_kernel(
-                        x, w, a[2 + k], gv[k], wave.reverse, ctx.seeds[k].get(c), valid,
-                        direction=wave.direction, col0=starts[c], cols=Wc,
-                        dboundary=incoming[k], dx=dx, dw=dw,
-                    )
+                    if ctx.plain:
+                        dseed = _sga.sga_sweep_bwd_seeded_plain(
+                            x, w[:, wave.direction], a[2 + k], gv[k], wave.reverse,
+                            ctx.seeds[k].get(c), valid, starts[c], Wc, incoming[k], dx,
+                            dw[:, wave.direction])
+                    else:
+                        _, _, dseed = _sga.sga_sweep_bwd_seeded_kernel(
+                            x, w, a[2 + k], gv[k], wave.reverse, ctx.seeds[k].get(c), valid,
+                            direction=wave.direction, col0=starts[c], cols=Wc,
+                            dboundary=incoming[k], dx=dx, dw=dw,
+                        )
                     # A later chunk owned these columns; the earlier one that
                     # overlaps them gets no cotangent there.
                     gv[k][..., starts[c] : starts[c] + Wc] = 0
@@ -200,7 +212,7 @@ class _ShardedSGA(torch.autograd.Function):
             comm.exchange(sends, recvs, group)
             incoming = nxt
         ctx.seeds = None
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def sharded_sga(
@@ -209,6 +221,7 @@ def sharded_sga(
     group=None,
     chunks: int = 0,
     force_pipeline: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """SGA on this rank's H block, the model's layout: x (B, C, D, Hl, W),
     w (B, C, 4, 5, Hl, W), L1-normalised by the caller; the blocks of the
@@ -222,33 +235,38 @@ def sharded_sga(
     wavefront anyway: its fixed cost, measured on one card by
     `python -m ganet_tpu_torch.bench_wavefront --single_shard`.
     Differentiable; a CUDA tensor runs K1, K5 forward and K3, K6 backward,
-    a CPU tensor their plain versions.
+    a CPU tensor their plain versions.  `impl` as in `ops.dispatch`: "torch"
+    runs the plain versions on any device (the JAX package's "scan").
     """
     B, C, D, Hl, W = x.shape
     if tuple(w.shape) != (B, C, 4, 5, Hl, W):
         raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    plain = impl == "torch" or not x.is_cuda
     idx, S = comm.group_rank(group)
     comm.check_group(group)
     if S == 1 and not force_pipeline:
-        return _sga.sga_ncdhw(x, w)
+        return _sga.sga_reference_ncdhw(x, w) if impl == "torch" else _sga.sga_ncdhw(x, w)
     if S > 1:
         _, starts = chunk_layout(W, chunks)
         logging.getLogger(__name__).debug("sga wavefront: %s", pipeline_stats(S, len(starts)))
     out = _ShardedSGA.apply(
         x.reshape(B * C, D, Hl, W).contiguous(), w.reshape(B * C, 4, 5, Hl, W).contiguous(),
-        group, chunks,
+        group, chunks, plain,
     )
     return out.reshape(B, C, D, Hl, W)
 
 
 def sharded_sga_channels_last(
-    x: torch.Tensor, w: torch.Tensor, group=None, chunks: int = 0, force_pipeline: bool = False
+    x: torch.Tensor, w: torch.Tensor, group=None, chunks: int = 0, force_pipeline: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """`sharded_sga` on the JAX package's layout: x (B, D, Hl, W, C),
     w (B, Hl, W, C, 4, 5)."""
     if w.shape[-2:] != (4, 5):
         raise ValueError(f"weights must end in (4, 5), got {tuple(w.shape)}")
     out = sharded_sga(
-        x.permute(0, 4, 1, 2, 3), w.permute(0, 3, 4, 5, 1, 2), group, chunks, force_pipeline
+        x.permute(0, 4, 1, 2, 3), w.permute(0, 3, 4, 5, 1, 2), group, chunks, force_pipeline, impl
     )
     return out.permute(0, 2, 3, 4, 1)

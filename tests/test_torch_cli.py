@@ -171,8 +171,8 @@ def test_build_model_refuses_a_volume_above_the_sga_kernels():
     """max_disp = 3 * SGA_MAX_D + 12 gives D = SGA_MAX_D + 4 bins: refused on
     a CUDA device before the model is built, with the limit named."""
     max_disp = 3 * SGA_MAX_D + 12
-    assert max_disp == 780
-    with pytest.raises(ValueError, match=f"max_disp {max_disp}.*D <= {SGA_MAX_D}.*max_disp <= 768"):
+    assert max_disp == 1548
+    with pytest.raises(ValueError, match=f"max_disp {max_disp}.*D <= {SGA_MAX_D}.*max_disp <= 1536"):
         build_model(ganet_deep(max_disp=max_disp), device="cuda")
 
 

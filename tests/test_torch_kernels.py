@@ -64,23 +64,27 @@ def test_sga_sweeps_and_fused(cuda, shape, dtype):
 
 
 # K1's staging: D across the splits of its bins over lanes (1, 2, 16, 33, 64,
-# 65, 128, and the top rung's 129, 192 and SGA_MAX_D = 256), sweep lengths
-# below, at and one past the H-sweep ring (4 steps) and a W-sweep stage (32
-# steps in float32, 64 in bfloat16), and a prime.  Along H, W = 40 (whole
+# 65, 128, the rung of 8 lanes' 129, 192 and 256, and the top rung's 257,
+# 384 and SGA_MAX_D = 512), sweep lengths below, at and one past the H-sweep
+# ring (4 steps) and a W-sweep stage (32 steps in float32, 64 in bfloat16;
+# 16 and 32 at the top rung), and a prime.  Along H, W = 40 (whole
 # copies: vectorised staging) and W = 37 (odd: element-wise staging, with
 # the direction's weight offset); along W, the staging is vectorised (4-byte
 # units) unless a bfloat16 row is odd.
 K1_LENGTHS = (1, 4, 5, 13, 32, 33, 64, 65)
-SGA_DS = [1, 2, 16, 33, 64, 65, 128, 129, 192, 256]
+SGA_DS = [1, 2, 16, 33, 64, 65, 128, 129, 192, 256, 257, 384, 512]
 
 
 def _vectorised(axis, D, W, elem):
-    """Whether K1, K3 and K6 stage a sweep by whole copies: 4-byte units along
-    W; along H 16-byte copies, or whole 8-byte rows where a warp's 32/G
-    columns are 8 bytes (bfloat16 at G = 8 lanes a column, D > 128)."""
+    """Whether K1, K3, K5 and K6 stage a sweep by whole copies: 4-byte units
+    along W; along H copies of 16 bytes, or of a whole row of a warp's 32/G
+    columns where that is less: G lanes a column, 2 up to D = 64, 4 to 128,
+    8 to 256 (8-byte bfloat16 rows) and 16 to 512 (8-byte float32 rows,
+    4-byte bfloat16)."""
     if axis == "w":
         return (W * elem) % 4 == 0
-    return (W * elem) % (8 if D > 128 and elem == 2 else 16) == 0
+    lanes = 1 if D <= 8 else 2 if D <= 64 else 4 if D <= 128 else 8 if D <= 256 else 16
+    return (W * elem) % min(16, 32 // lanes * elem) == 0
 
 
 def test_sga_max_d_is_the_kernels(cuda):
@@ -460,14 +464,17 @@ def test_eval_route_fuses_in_place(cuda):
 
 # (N, D, H, W, col0, cols): ragged windows inside wider rows; a walk of one
 # step (H = 1); windows of whole copies whose cols is not a multiple of 16,
-# and one of 37 columns at an odd col0 (element-wise staging); the top rungs
-# of D (above 128), with whole copies and element-wise (23 columns at an odd
-# col0, a ragged last tile); at D = 64 a grid of 264 warps of 16 columns,
+# and one of 37 columns at an odd col0 (element-wise staging); the upper
+# rungs of D (above 128 and above 256), with whole copies and element-wise
+# (23 columns at an odd col0, a ragged last tile); at D = 64 a grid of 264
+# warps of 16 columns,
 # where K5 leaves 4 lanes x 16 bins for 2 x 32.
 SEEDED_SHAPES = [(2, 4, 6, 10, 3, 5), (3, 13, 9, 70, 0, 37), (1, 100, 5, 40, 8, 32),
                  (2, 64, 1, 24, 4, 16), (2, 64, 5, 64, 8, 40), (2, 64, 7, 60, 5, 37),
                  (2, 129, 4, 40, 8, 24), (1, 192, 3, 40, 8, 24), (1, 256, 3, 40, 8, 24),
-                 (1, 129, 3, 40, 5, 23), (1, 256, 3, 40, 5, 23), (24, 64, 3, 184, 8, 176)]
+                 (1, 129, 3, 40, 5, 23), (1, 256, 3, 40, 5, 23), (24, 64, 3, 184, 8, 176),
+                 (1, 257, 3, 40, 8, 24), (1, 384, 3, 40, 8, 24), (1, 512, 3, 40, 8, 24),
+                 (1, 512, 3, 40, 5, 23)]
 
 
 @pytest.mark.parametrize("shape", SEEDED_SHAPES)
@@ -523,7 +530,7 @@ def test_seeded_sweep_kernels(cuda, shape, dtype):
             assert torch.equal(dw[:, others], dw0[:, others])
 
 
-@pytest.mark.parametrize("D", [8, 64, 129, 256])
+@pytest.mark.parametrize("D", [8, 64, 129, 256, 384, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seeded_sweep_equals_k1_over_the_whole_width(cuda, D, dtype):
     """K5 unseeded over the columns [0, W) runs K1's arithmetic: its output
